@@ -1,8 +1,9 @@
-"""Carry windows and factor families across from the JAX package.
+"""Carry windows, factor families and lidar state across from the JAX package.
 
-The JAX package's ``WindowState`` and factor families arrive as plain dicts
-of numpy arrays, field name → array (a window as a dict of such dicts, one
-per sub-state), and become the port's dataclasses on a given device. The
+The JAX package's ``WindowState``, factor families, ``FeatureCloud``,
+``RingGrid`` and ``RegistrationMap`` arrive as plain dicts of numpy arrays,
+field name → array (a window as a dict of such dicts, one per sub-state),
+and become the port's counterparts on a given device. The
 caller does the flattening (``np.asarray`` of every field), so this module
 imports no JAX. Arrays may carry leading batch dims. Bool arrays stay bool,
 integer arrays (slots) become int64, float arrays keep their dtype.
@@ -19,6 +20,8 @@ import torch
 from beam_slam_tpu_torch.core import factors as fc
 from beam_slam_tpu_torch.core.window import (ImuStates, Landmarks,
                                              MotionStates, Poses, WindowState)
+from beam_slam_tpu_torch.lidar.cloud import FeatureCloud, RingGrid
+from beam_slam_tpu_torch.lidar.registration_map import RegistrationMap
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -55,3 +58,41 @@ def family_from_numpy(name: str, fields: Mapping[str, np.ndarray],
     if name not in fc.FAMILIES:
         raise KeyError(f"factor family {name!r} is not ported")
     return _build(fc.FAMILIES[name], fields, device)
+
+
+def feature_cloud_from_numpy(fields: Mapping[str, np.ndarray],
+                             device) -> FeatureCloud:
+    """The JAX package's FeatureCloud as a dict of numpy arrays (field name →
+    array) → the port's FeatureCloud on ``device``."""
+    return _build(FeatureCloud, fields, device)
+
+
+def ring_grid_from_numpy(fields: Mapping[str, np.ndarray],
+                         device) -> RingGrid:
+    """{"xyz", "time", "valid"} → the port's RingGrid on ``device``."""
+    return _build(RingGrid, fields, device)
+
+
+def registration_map_from_numpy(fields: Mapping[str, object],
+                                device) -> RegistrationMap:
+    """Carry a host RegistrationMap across: its settings (map_size,
+    edge_cap, surf_cap, world_voxel, world_edge_cap, world_surf_cap), its
+    numpy ring buffer (edges, edges_valid, surfs, surfs_valid, q, p, used,
+    stamps) and its next slot (``next``) → the port's RegistrationMap, whose
+    world frame is built on ``device``."""
+    m = RegistrationMap(
+        map_size=int(fields["map_size"]), edge_cap=int(fields["edge_cap"]),
+        surf_cap=int(fields["surf_cap"]),
+        world_voxel=float(fields["world_voxel"]),
+        world_edge_cap=int(fields["world_edge_cap"]),
+        world_surf_cap=int(fields["world_surf_cap"]), device=device)
+    for name in ("edges", "edges_valid", "surfs", "surfs_valid", "q", "p",
+                 "used", "stamps"):
+        dst = getattr(m, name)
+        src = np.asarray(fields[name])
+        if src.shape != dst.shape:
+            raise ValueError(f"RegistrationMap.{name}: shape {src.shape}, "
+                             f"expected {dst.shape}")
+        dst[...] = src
+    m._next = int(fields["next"])
+    return m

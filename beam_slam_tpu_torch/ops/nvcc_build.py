@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -37,28 +37,53 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str, sources: Sequence[str]) -> Tuple[Path, str, float]:
-    """Compile ``sources`` (file names under csrc/) into ``lib<name>``.
-
-    Returns (path of the .so, the compiler's stderr — ptxas register and
-    shared-memory report — and the build seconds; 0.0 on a cache hit)."""
+def _target(name: str, sources: Sequence[str]) -> Tuple[Path, list]:
+    """(cached .so path, the source paths) of library ``name``."""
     paths = [CSRC / s for s in sources]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in paths:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out, "", 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stderr, seconds
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so", paths
+
+
+def build_many(specs: Sequence[Tuple[str, Sequence[str]]]
+               ) -> Dict[str, Tuple[Path, str, float]]:
+    """Compile several libraries at once, one ``nvcc`` process each, all
+    started together. ``specs`` is a list of (name, sources under csrc/).
+
+    Returns name → (path of the .so, the compiler's stderr — ptxas register
+    and shared-memory report — and the build seconds; 0.0 on a cache hit)."""
+    results: Dict[str, Tuple[Path, str, float]] = {}
+    running = []
+    for name, sources in specs:
+        out, paths = _target(name, sources)
+        if out.exists():
+            results[name] = (out, "", 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((name, out, tmp, cmd, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, cmd, proc, t0 in running:
+        _, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stderr}")
+            continue
+        os.replace(tmp, out)
+        results[name] = (out, stderr, seconds)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return results
+
+
+def build(name: str, sources: Sequence[str]) -> Tuple[Path, str, float]:
+    """Compile ``sources`` (file names under csrc/) into ``lib<name>``; see
+    :func:`build_many` for what it returns."""
+    return build_many([(name, sources)])[name]

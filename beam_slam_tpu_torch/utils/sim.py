@@ -12,6 +12,7 @@ from torch.func import jvp
 
 from beam_slam_tpu_torch.core import lie
 from beam_slam_tpu_torch.core.factors import GRAVITY_NOMINAL
+from beam_slam_tpu_torch.device import resolve
 
 
 class TrajectorySample(NamedTuple):
@@ -29,11 +30,14 @@ class AnalyticTrajectory:
     p(t) = amp_p ⊙ [sin(ω₀t), cos(ω₁t), sin(ω₂t)] + v_drift·t
     θ(t) = amp_r ⊙ [sin(ν₀t), sin(ν₁t), sin(ν₂t)]   (rotation vector)
     q(t) = exp(θ(t))
+
+    Its tensors live on ``device``, the card unless asked otherwise.
     """
 
     def __init__(self, amp_p=(1.0, 1.0, 0.4), freq_p=(0.9, 0.7, 1.1),
                  v_drift=(0.25, 0.0, 0.05), amp_r=(0.4, 0.3, 0.5),
                  freq_r=(0.8, 1.2, 0.6), dtype=torch.float32, device=None):
+        device = resolve(device)
         as_t = lambda x: torch.tensor(x, dtype=dtype, device=device)  # noqa: E731
         self.amp_p = as_t(amp_p)
         self.freq_p = as_t(freq_p)

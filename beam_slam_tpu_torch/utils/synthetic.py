@@ -25,6 +25,7 @@ from beam_slam_tpu_torch.core import factors as fc
 from beam_slam_tpu_torch.core import lie
 from beam_slam_tpu_torch.core import window as win
 from beam_slam_tpu_torch.core.window import WindowState
+from beam_slam_tpu_torch.device import resolve
 from beam_slam_tpu_torch.imu import preintegration as pre
 from beam_slam_tpu_torch.utils import sim
 
@@ -57,11 +58,13 @@ def build_lvio_window(gen: torch.Generator, n_kf: int = 32,
                       device=None) -> Tuple[WindowState, Tuple, Tuple]:
     """Returns (window, families, losses) for one synthetic LVIO window.
 
-    ``gen`` is a CPU ``torch.Generator``; the window is built on ``device``.
+    ``gen`` is a CPU ``torch.Generator``; the window is built on ``device``
+    (the card unless asked otherwise).
     With ``with_vision`` the window carries ``n_landmarks`` Euclidean
     landmarks each observed from ``obs_per_lm`` consecutive keyframes
     (→ n_landmarks·obs_per_lm ReprojectionFactors) plus ``n_idp``
     inverse-depth landmarks with binary anchor→measurement factors."""
+    device = resolve(device)
     K = n_kf  # state capacity: one slot per keyframe
     rnd = _Draws(gen, dtype, device)
     traj = sim.AnalyticTrajectory(dtype=dtype, device=device)
@@ -255,7 +258,9 @@ def _add_vision(rnd: _Draws, window: WindowState, gt, n_kf: int, n_lm: int,
 def build_lvio_batch(gen: torch.Generator, batch: int, **kw):
     """Batch of independent windows of one census (leading axis = submap):
     the same slots and measurements model in every window, fresh draws from
-    ``gen`` for each. Losses are shared."""
+    ``gen`` for each. Losses are shared. Built on ``device`` (the card
+    unless asked otherwise)."""
+    kw["device"] = resolve(kw.get("device"))
     built = [build_lvio_window(gen, **kw) for _ in range(batch)]
     windows = win.stack([b[0] for b in built])
     families = tuple(win.stack([b[1][i] for b in built])

@@ -3,26 +3,43 @@
 
     python3 chip_smoke.py
 
-Builds kernel K1 (the batched Cholesky factor+solve, csrc/cholesky.cu) with
-nvcc for sm_90a, holds it against its plain PyTorch version on the card,
-then drives the port's main path at the flagship LVIO census — one
-Levenberg–Marquardt bundle-adjustment solve of a 40-state window (39 IMU,
-39 lidar relative-pose, 2048 reprojection and 448 inverse-depth factors,
-320 Schur-eliminated landmarks; a 640×640 reduced system) and the
-shared-topology batched solve of 8 such windows — and checks the results.
+Builds the port's three hand-written CUDA kernels with nvcc for sm_90a, one
+nvcc process each, all started together: K1 (batched Cholesky factor+solve,
+csrc/cholesky.cu), K2 (exact kNN top-k, csrc/knn.cu) and K3 (fixed-radius
+neighbourhood moments, csrc/moments.cu). Then it drives the port's paths and
+holds every kernel against its plain PyTorch version on the card:
+
+  * the flagship LVIO solve — one Levenberg–Marquardt bundle-adjustment
+    solve of a 40-state window (39 IMU, 39 lidar relative-pose, 2048
+    reprojection and 448 inverse-depth factors, 320 Schur-eliminated
+    landmarks; a 640×640 reduced system) and the shared-topology batched
+    solve of 8 such windows (K1);
+  * the LIO front end at full width — the vendored VLP-16 scan
+    (tests/data/test_scan_vlp16.pcd.gz) organised at 16 × 1800 and seen
+    from 12 poses along a path, registered scan to map through
+    create_scan_registration on configs/ (registration/scan_to_map.json +
+    matchers/loam_vlp16.json: a 10-scan map deduped on a 0.1 m voxel grid,
+    8 GN steps with adaptive refits), checked against ground truth and
+    against the CPU plain path (K2); the pipelined device-map strategy on
+    the same scans; and one radius-mode registration (K3).
 
 Phases print one line each; any failure raises and exits non-zero. The
-second-to-last line is the kernels' JSON record, the line before it the
-card's name and power limit, and the last line the run's JSON verdict.
-Requires CUDA: without a card it fails and prints no result.
+line before the last two is the kernels' JSON record, then the card's name
+and power limit, and the last line the run's JSON verdict. Requires CUDA:
+without a card it fails and prints no result.
 """
 
+import gzip
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+from pathlib import Path
 
+import numpy as np
 import torch
 
 LOSSES = (None, None, 1.0, 2.0, 2.0)
@@ -36,6 +53,33 @@ X_TOL, RES_TOL = 2e-3, 1e-2
 # order and atomics in the scatter assembly. Final cost relative gap, and the
 # largest gap of any state position in metres (the CPU parity test's bound).
 COST_RTOL, DP_TOL = 1e-5, 5e-4
+
+# LIO front end at full width: the vendored scan, the repo's production
+# configs (configs/lio.yaml names this pair), 12 poses along a path.
+ROOT = Path(__file__).resolve().parent
+SCAN_GZ = ROOT / "tests" / "data" / "test_scan_vlp16.pcd.gz"
+N_RINGS, WIDTH = 16, 1800           # as tests/test_real_scan.py:41-42
+LIO_JSON = ("registration/scan_to_map.json", "matchers/loam_vlp16.json")
+LIO_SCANS = 12
+LIO_SEED = 7                        # numpy RNG of the seed perturbations
+SEED_ROT, SEED_TRANS = 0.02, 0.1    # perturbation std, as test_real_scan.py
+GT_TRANS, GT_ROT = 0.05, 0.02       # tests/test_real_scan.py:135-138
+CARD_CPU_DP, CARD_CPU_ROT = 2e-3, 2e-3  # one registration, card vs CPU
+PIPE_TOL = 2e-3                     # tests/test_pipelined_registration.py
+RADIUS_GT = 0.02                    # tests/test_lidar.py:194-196
+# K2 vs plain: distances rtol 1e-5 / atol 1e-5·max‖q‖²; neighbour sets equal
+# (up to swaps between distances equal within that) for ≥ 99.5% of queries.
+KNN_RTOL, KNN_SET_FRAC = 1e-5, 0.995
+# K3 vs plain: n exact, except at ≤ 0.1% of queries, and there only by refs
+# whose float64 distance lies within 1e-6·(‖q‖² + ‖r‖²) of rad² (the
+# kernel's fused q·r and the matmul's round differently); at the others the
+# centroid within 1e-5·(‖q‖ + rad) + 1e-6 and the scatter within
+# 4e-6·n·(‖q‖ + rad)² + 1e-5 — fp32 sums of n terms of size ‖r‖² in
+# another order, then the cancellation S = m2 − n·c cᵀ.
+MOM_DIFF_FRAC, MOM_EDGE_RTOL = 1e-3, 1e-6
+# Published H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and
+# fp32 FLOP/s outside the tensor cores.
+HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 
 
 def _spd(gen, B, N, cond=1e3):
@@ -77,6 +121,524 @@ def _wall_ms(fn, reps):
     return statistics.median(times)
 
 
+def _bound(nbytes, ops):
+    """Least time for the work on the card: (ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _knn_bound(Q, R, k):
+    # each (query, ref) pair: 3 products + 2 sums (q·r), ×2, 2 sums, compare
+    return _bound(Q * 12 + R * 13 + Q * k * 12, 9 * Q * R)
+
+
+def _moments_bound(Q, R, n_neighbours):
+    # 9 per pair for distance and test, 16 per neighbour for the moments
+    return _bound(Q * 12 + R * 13 + Q * 52, 9 * Q * R + 16 * n_neighbours)
+
+
+def _chol_bound(B, N):
+    return _bound(B * (N * N + 2 * N + 1) * 4, B * (N ** 3 / 3 + 2 * N * N))
+
+
+def _knn_check(knn, q, r, v, k, label):
+    """K2 vs its plain version on the card; returns max |Δd2| (finite)."""
+    idx, d2 = knn.knn_topk(q, r, v, k)
+    idx_p, d2_p = knn.knn_topk_reference(q, r, v, k)
+    torch.cuda.synchronize()
+    idx, d2, idx_p, d2_p = (t.cpu().numpy() for t in (idx, d2, idx_p, d2_p))
+    qn = q.cpu().numpy()
+    atol = KNN_RTOL * float((qn * qn).sum(1).max())
+    fin = np.isfinite(d2_p)
+    if not np.array_equal(np.isfinite(d2), fin):
+        raise RuntimeError(f"K2 {label}: +inf slots differ")
+    err = float(np.abs(d2[fin] - d2_p[fin]).max()) if fin.any() else 0.0
+    if not np.allclose(d2[fin], d2_p[fin], rtol=KNN_RTOL, atol=atol):
+        raise RuntimeError(f"K2 {label}: distances differ by {err}")
+    if idx.min() < 0 or idx.max() >= r.shape[0]:
+        raise RuntimeError(f"K2 {label}: index out of range")
+    same = 0
+    for n in range(len(qn)):
+        f = fin[n]
+        a, b = set(idx[n][f].tolist()), set(idx_p[n][f].tolist())
+        if a == b:
+            same += 1
+            continue
+        kth = float(d2_p[n][f].max())
+        swapped = [float(d2[n][idx[n] == i][0]) if i in a
+                   else float(d2_p[n][idx_p[n] == i][0]) for i in a ^ b]
+        same += all(abs(d - kth) <= atol + KNN_RTOL * abs(kth)
+                    for d in swapped)
+    frac = same / max(len(qn), 1)
+    if frac < KNN_SET_FRAC:
+        raise RuntimeError(f"K2 {label}: neighbour sets agree for "
+                           f"{frac:.4f} of queries")
+    print(f"[7] K2 {label} Q={q.shape[0]} R={r.shape[0]} k={k}: "
+          f"max|d2-d2_plain|={err:.3e} (atol {atol:.3e}), sets agree for "
+          f"{frac:.4f}", flush=True)
+    return err
+
+
+def _moments_check(moments, q, r, v, rad, label):
+    """K3 vs its plain version on the card; returns (max |Δ| over c and S,
+    neighbours found)."""
+    mom = moments.raw_moments(q, r, v, rad)
+    mom_p = moments.raw_moments_reference(q, r, v, rad)
+    n, c, S = (t.cpu().numpy() for t in moments.finish(mom))
+    n_p, c_p, S_p = (t.cpu().numpy() for t in moments.finish(mom_p))
+    qn = q.cpu().numpy().astype(np.float64)
+    same = n == n_p
+    if (~same).sum() > MOM_DIFF_FRAC * len(n):
+        raise RuntimeError(f"K3 {label}: counts differ at "
+                           f"{int((~same).sum())} queries")
+    # a count may differ only by refs whose exact distance lies within fp32
+    # rounding of the radius: the two sides round q·r differently
+    rn = r.cpu().numpy().astype(np.float64)[v.cpu().numpy()]
+    rr = (rn * rn).sum(1)
+    for i in np.flatnonzero(~same):
+        qq = float(qn[i] @ qn[i])
+        d2 = ((rn - qn[i]) ** 2).sum(1)
+        edge = np.abs(d2 - rad * rad) <= MOM_EDGE_RTOL * (qq + rr)
+        if abs(n[i] - n_p[i]) > edge.sum():
+            raise RuntimeError(f"K3 {label}: query {i} counts {n[i]} vs "
+                               f"{n_p[i]}, {int(edge.sum())} refs on the "
+                               f"radius")
+    scale = np.linalg.norm(qn, axis=1) + rad
+    c_err = np.abs(c - c_p).max(1)[same]
+    S_err = np.abs(S - S_p).reshape(len(n), 9).max(1)[same]
+    c_ok = c_err <= 1e-5 * scale[same] + 1e-6
+    S_ok = S_err <= 4e-6 * n[same] * scale[same] ** 2 + 1e-5
+    if not (c_ok.all() and S_ok.all()):
+        raise RuntimeError(f"K3 {label}: centroid/scatter out of bounds at "
+                           f"{int((~c_ok).sum())}/{int((~S_ok).sum())} "
+                           f"queries")
+    err = float(max(c_err.max(initial=0.0), S_err.max(initial=0.0)))
+    print(f"[7] K3 {label} Q={q.shape[0]} R={r.shape[0]} rad={rad}: n "
+          f"exact at {int(same.sum())} of {len(n)} queries, the rest only by "
+          f"refs on the radius ({int(n.sum())} neighbours), "
+          f"max|Δc|={c_err.max(initial=0.0):.3e}, "
+          f"max|ΔS|={S_err.max(initial=0.0):.3e}", flush=True)
+    return err, int(n.sum())
+
+
+def _so3_err(q_a, q_b) -> float:
+    """Angle of q_a⁻¹ q_b (host arrays)."""
+    from beam_slam_tpu_torch.core import lie
+    qa, qb = (torch.as_tensor(np.asarray(x, np.float32)) for x in (q_a, q_b))
+    return float(torch.linalg.vector_norm(
+        lie.so3_log(lie.quat_mul(lie.quat_conj(qa), qb))))
+
+
+def _lio_poses(n):
+    """Ground-truth poses along a path through the scan's environment:
+    ~0.12 m and ~0.9° of yaw per scan, with some sway."""
+    from beam_slam_tpu_torch.core import lie
+    poses = []
+    for i in range(n):
+        rv = torch.tensor([0.004 * np.sin(i), 0.003 * (np.cos(i) - 1.0),
+                           0.015 * i], dtype=torch.float32)
+        p = np.array([0.12 * i, 0.04 * np.sin(0.7 * i), 0.005 * i],
+                     np.float32)
+        poses.append((lie.so3_exp_quat(rv).numpy(), p))
+    return poses
+
+
+def _perturbed(q, p, rng, rot=SEED_ROT, trans=SEED_TRANS):
+    from beam_slam_tpu_torch.core import lie
+    dq = lie.so3_exp_quat(torch.as_tensor(
+        (rng.standard_normal(3) * rot).astype(np.float32)))
+    q_s = lie.quat_mul(torch.as_tensor(q), dq).numpy()
+    return q_s, (p + rng.standard_normal(3).astype(np.float32) * trans)
+
+
+def _observed_grid(cloud, q, p, device):
+    """The real cloud seen from pose (q, p): sensor-frame points T⁻¹·world,
+    organised (tests/test_real_scan.py:59-66)."""
+    from beam_slam_tpu_torch.core import lie
+    from beam_slam_tpu_torch.lidar.cloud import organize_scan
+    pts = lie.quat_rotate(lie.quat_conj(torch.as_tensor(q))[None],
+                          torch.as_tensor(cloud.xyz - p)).numpy()
+    return organize_scan(pts, cloud.ring, cloud.time, N_RINGS, WIDTH,
+                         device=device)
+
+
+def _load_scan():
+    from beam_slam_tpu_torch.lidar.pcd import load_pcd
+    with tempfile.TemporaryDirectory() as d:
+        raw = Path(d) / "test_scan_vlp16.pcd"
+        raw.write_bytes(gzip.decompress(SCAN_GZ.read_bytes()))
+        return load_pcd(str(raw))
+
+
+def _gt_rel(poses, i, j):
+    from beam_slam_tpu_torch.lidar.scan_registration import _pose_delta
+    return _pose_delta(poses[i][0], poses[i][1], poses[j][0], poses[j][1])
+
+
+def _check_factors(rels, poses, stamps, label):
+    """Every chained factor within the ground-truth bounds; returns the
+    worst (trans, rot) error."""
+    worst = (0.0, 0.0)
+    for f in rels:
+        i, j = stamps.index(f.stamp_i), stamps.index(f.stamp_j)
+        dq_gt, dp_gt = _gt_rel(poses, i, j)
+        e_p = float(np.linalg.norm(np.asarray(f.dp) - dp_gt))
+        e_r = _so3_err(f.dq, dq_gt)
+        if not (e_p < GT_TRANS and e_r < GT_ROT) or f.sensor != "lidar":
+            raise RuntimeError(f"{label}: factor {i}->{j} off ground truth by "
+                               f"{e_p:.4f} m / {e_r:.4f} rad")
+        worst = (max(worst[0], e_p), max(worst[1], e_r))
+    return worst
+
+
+def run_lio(device, n_scans=LIO_SCANS, map_size=None, card=""):
+    """The LIO front end, sync strategy, from configs/ on ``device``.
+    Returns what the later phases reuse."""
+    from beam_slam_tpu_torch import device as tdev
+    from beam_slam_tpu_torch.lidar import features as feat
+    from beam_slam_tpu_torch.lidar import scan_registration as tsr
+    from beam_slam_tpu_torch.solver.smoother import Transaction
+    from beam_slam_tpu_torch.ops import knn
+
+    cloud = _load_scan()
+    poses = _lio_poses(n_scans)
+    rng = np.random.default_rng(LIO_SEED)
+    seeds = [poses[0]] + [_perturbed(q, p, rng) for q, p in poses[1:]]
+    stamps = [0.1 * i for i in range(n_scans)]
+    rcfg, mcfg = LIO_JSON
+    if map_size is not None:   # a rehearsal off the card: a smaller map
+        rcfg = dict(json.loads((ROOT / "configs" / rcfg).read_text()),
+                    map_size=map_size)
+    strat, feat_cfg = tsr.create_scan_registration(
+        rcfg, mcfg, config_root=str(ROOT / "configs"),
+        **({} if device == "cuda" else {"device": device}))
+    cuda = strat.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    grids, fcs = [], []
+    for q, p in poses:
+        grids.append(_observed_grid(cloud, q, p,
+                                    None if cuda else device))
+        fcs.append(feat.extract_features(grids[-1], feat_cfg))
+    sync()
+
+    host_waits = [0]
+    numpy_fn = tdev.HostCopy.numpy
+
+    def counted_numpy(self):
+        host_waits[0] += self._event is not None
+        return numpy_fn(self)
+
+    knn.knn_topk.launches = 0
+    rels, abss, ms, syncs, last = [], [], [], [], None
+    for i in range(n_scans):
+        if i == n_scans - 1:  # the inputs of the last registration
+            last = dict(fc=fcs[i], world=strat.map.world_frame(),
+                        seed=seeds[i], gt=poses[i])
+        txn = Transaction(stamp=stamps[i])
+        sync()
+        host_waits[0] = 0
+        tdev.HostCopy.numpy = counted_numpy
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if cuda:
+                torch.cuda.set_sync_debug_mode(1)
+            try:
+                ok = strat.register_new_scan(stamps[i], fcs[i], *seeds[i],
+                                             txn)
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode(0)
+                tdev.HostCopy.numpy = numpy_fn
+        sync()
+        if i > 0:
+            ms.append(1e3 * (time.perf_counter() - t0))
+            syncs.append(host_waits[0] + sum(
+                "synchroniz" in str(w.message) for w in caught))
+        if not ok:
+            raise RuntimeError(f"LIO: scan {i} was not accepted")
+        rels += txn.rel_poses
+        abss += txn.abs_poses
+    launches = knn.knn_topk.launches
+    if len(abss) != 1 or len(rels) != n_scans - 1:
+        raise RuntimeError(f"LIO: {len(abss)} priors, {len(rels)} factors")
+    worst = _check_factors(rels, poses, stamps, "LIO")
+    if cuda and launches < 2 * (n_scans - 1):
+        raise RuntimeError(f"LIO: {launches} K2 launches for "
+                           f"{n_scans - 1} registrations")
+    me, _, msf, _ = last["world"]
+    print(f"[6] LIO at {N_RINGS}x{WIDTH}: {n_scans} scans accepted, "
+          f"{len(rels)} chained factors, worst {worst[0]:.4f} m / "
+          f"{worst[1]:.4f} rad off ground truth (bounds {GT_TRANS} / "
+          f"{GT_ROT}); world map {me.shape[0]} edges + {msf.shape[0]} "
+          f"surfaces, scan {fcs[0].edge_strong.shape[0] + fcs[0].edge_weak.shape[0]}"
+          f" + {fcs[0].surf_strong.shape[0] + fcs[0].surf_weak.shape[0]}; "
+          f"{launches} K2 launches; register_new_scan median "
+          f"{statistics.median(ms):.2f} ms over {len(ms)} (host clock, "
+          f"synchronised; {card}); host syncs per scan "
+          f"{statistics.mean(syncs):.1f} (min {min(syncs)}, max "
+          f"{max(syncs)})", flush=True)
+    return dict(strat=strat, feat_cfg=feat_cfg, grids=grids, fcs=fcs,
+                seeds=seeds, poses=poses, stamps=stamps, rels=rels,
+                launches=launches, last=last, ms=ms)
+
+
+def registration_card_vs_cpu(lio):
+    """One registration on the card against the port's CPU plain path on
+    the same features, map and seed."""
+    from beam_slam_tpu_torch.lidar import registration as treg
+    last, cfg = lio["last"], lio["strat"].reg_cfg
+    dev = last["world"][0].device
+    q0 = torch.as_tensor(last["seed"][0], device=dev)
+    p0 = torch.as_tensor(last["seed"][1], device=dev)
+    res = treg.register_loam(last["fc"], *last["world"], q0, p0, cfg)
+    res_cpu = treg.register_loam(last["fc"].to("cpu"),
+                                 *(w.cpu() for w in last["world"]),
+                                 q0.cpu(), p0.cpu(), cfg)
+    dp = float(torch.linalg.vector_norm(res.p.cpu() - res_cpu.p))
+    dr = _so3_err(res.q.cpu().numpy(), res_cpu.q.numpy())
+    same = bool(res.converged) == bool(res_cpu.converged)
+    print(f"[6] one registration, card vs CPU plain path: |dp|={dp:.2e} m "
+          f"(bound {CARD_CPU_DP}), rotation {dr:.2e} rad (bound "
+          f"{CARD_CPU_ROT}), converged {bool(res.converged)} / "
+          f"{bool(res_cpu.converged)}, inliers {int(res.n_inliers)} / "
+          f"{int(res_cpu.n_inliers)}", flush=True)
+    if not (dp <= CARD_CPU_DP and dr <= CARD_CPU_ROT and same):
+        raise RuntimeError("registration on the card disagrees with the CPU "
+                           "plain path")
+
+
+def registration_stages(lio, card=""):
+    """Where one full-width registration's time goes (host clock with a
+    sync after every stage)."""
+    from beam_slam_tpu_torch.lidar import features as feat
+    from beam_slam_tpu_torch.lidar import registration as treg
+    last, strat = lio["last"], lio["strat"]
+    dev = last["world"][0].device
+    q0 = torch.as_tensor(last["seed"][0], device=dev)
+    p0 = torch.as_tensor(last["seed"][1], device=dev)
+    stages = {"features": [], "world map": [], "fits": [], "gn steps": [],
+              "register_loam": []}
+
+    def timed(key, fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        stages[key].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    fit, step = treg._fit_corr, treg._gn_step
+    for _ in range(5):
+        timed("features", feat.extract_features, lio["grids"][-1],
+              lio["feat_cfg"])
+        strat.map._cache = None
+        timed("world map", strat.map.world_frame)
+        treg._fit_corr = lambda *a, **kw: timed("fits", fit, *a, **kw)
+        treg._gn_step = lambda *a, **kw: timed("gn steps", step, *a, **kw)
+        try:
+            timed("register_loam", treg.register_loam, last["fc"],
+                  *last["world"], q0, p0, strat.reg_cfg)
+        finally:
+            treg._fit_corr, treg._gn_step = fit, step
+    n_fits = len(stages["fits"]) // 5
+    n_steps = len(stages["gn steps"]) // 5
+    med = {k: statistics.median(v) for k, v in stages.items()}
+    per_fit = statistics.median(stages["fits"])
+    per_step = statistics.median(stages["gn steps"])
+    print(f"[6] one full-width registration, synced stages (median of 5; "
+          f"{card}): features {med['features']:.2f} ms, world map assembly "
+          f"+ dedup {med['world map']:.2f} ms, register_loam "
+          f"{med['register_loam']:.2f} ms = {n_fits} fits x "
+          f"{per_fit:.2f} ms + {n_steps} GN steps x {per_step:.2f} ms "
+          f"+ rest", flush=True)
+
+    # the same registration with no sync inside, then once under the
+    # profiler: device time (kernels and copies, one stream) against wall
+    def reg():
+        return treg.register_loam(last["fc"], *last["world"], q0, p0,
+                                  strat.reg_cfg)
+
+    wall = _wall_ms(reg, 5)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        reg()
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in on_dev) / 1e3
+    knn_dev = sum(e.time_range.elapsed_us() for e in on_dev
+                  if "knn_topk_kernel" in e.name) / 1e3
+    print(f"[6] register_loam unsynced: median {wall:.2f} ms over 5; under "
+          f"the profiler {len(on_dev)} device ops, device time {busy:.2f} ms "
+          f"(K2 {knn_dev:.2f} ms), so the card is idle "
+          f"{100 * (1 - busy / wall):.1f}% of the unsynced wall ({card})",
+          flush=True)
+
+
+def kernel_checks(lio, card=""):
+    """K2 and K3 against their plain versions on the card at the LIO path's
+    own shapes and data, plus a ragged shape and one with fewer than k
+    valid refs; then each timed in turns."""
+    from beam_slam_tpu_torch.core import lie
+    from beam_slam_tpu_torch.ops import knn, moments
+    last = lio["last"]
+    me, mev, ms_, msv = last["world"]
+    fc = last["fc"]
+    dev = me.device
+    q = torch.as_tensor(last["gt"][0], device=dev)
+    p = torch.as_tensor(last["gt"][1], device=dev)
+    edges = torch.cat([fc.edge_strong, fc.edge_weak])
+    surfs = torch.cat([fc.surf_strong, fc.surf_weak])
+    e_map = (lie.quat_rotate(q[None], edges) + p[None]).contiguous()
+    s_map = (lie.quat_rotate(q[None], surfs) + p[None]).contiguous()
+    gen = torch.Generator().manual_seed(3)
+    rq = (torch.rand(1000, 3, generator=gen) * 20 - 10).to(dev)
+    rr = (torch.rand(3001, 3, generator=gen) * 20 - 10).to(dev)
+    rv = (torch.rand(3001, generator=gen) < 0.7).to(dev)
+    few = torch.zeros(64, dtype=torch.bool)
+    few[[3, 17, 40]] = True
+    few = few.to(dev)
+    k_err = max(
+        _knn_check(knn, e_map, me, mev, 5, "edges"),
+        _knn_check(knn, s_map, ms_, msv, 10, "surfaces"),
+        _knn_check(knn, rq, rr, rv, 8, "ragged"),
+        _knn_check(knn, rq[:100], rr[:64], few, 10, "3 valid of 64"))
+    m_err, n_nb = 0.0, 0
+    for args in ((e_map, me, mev, 0.35, "edges"),
+                 (s_map, ms_, msv, 0.3, "surfaces"),
+                 (rq, rr, rv, 1.5, "ragged"),
+                 (rq[:100], rr[:64], few, 30.0, "3 valid of 64")):
+        err, n = _moments_check(moments, *args)
+        m_err = max(m_err, err)
+        if args[-1] == "surfaces":
+            n_nb = n
+    # timed in turns at the surface shape (the larger of the two)
+    Q, R = s_map.shape[0], ms_.shape[0]
+    k_ms, k_plain = _paired_ms(lambda: knn.knn_topk(s_map, ms_, msv, 10),
+                               lambda: knn.knn_topk_reference(s_map, ms_,
+                                                              msv, 10))
+    # the library yardstick on the same inputs: invalid refs masked to +inf
+    # (it ranks distances, not their squares: the same order)
+    k_lib = _event_ms(lambda: torch.topk(
+        torch.cdist(s_map, ms_).masked_fill_(~msv, float("inf")), 10,
+        largest=False), 20)
+    m_ms, m_plain = _paired_ms(
+        lambda: moments.raw_moments(s_map, ms_, msv, 0.3),
+        lambda: moments.raw_moments_reference(s_map, ms_, msv, 0.3))
+    kb, kb_by = _knn_bound(Q, R, 10)
+    mb, mb_by = _moments_bound(Q, R, n_nb)
+    print(f"[7] K2 at ({Q}, {R}, k=10): kernel {k_ms:.3f} ms, plain "
+          f"{k_plain:.3f} ms, cdist+topk {k_lib:.3f} ms, bound {kb:.4f} ms "
+          f"({kb_by}); K3 at ({Q}, {R}, rad=0.3): kernel {m_ms:.3f} ms, "
+          f"plain {m_plain:.3f} ms, no single PyTorch call computes it, "
+          f"bound {mb:.4f} ms ({mb_by}) (CUDA events, {card})", flush=True)
+    return dict(k_err=k_err, k_ms=k_ms, k_plain=k_plain, k_lib=k_lib,
+                k_bound=(kb, kb_by), m_err=m_err, m_ms=m_ms,
+                m_plain=m_plain, m_bound=(mb, mb_by))
+
+
+def run_pipelined(lio, card=""):
+    """The pipelined device-map strategy on the same scans and seeds: after
+    flush_pending its factors equal the sync strategy's."""
+    from beam_slam_tpu_torch.lidar import scan_registration as tsr
+    from beam_slam_tpu_torch.solver.smoother import Transaction
+    s = lio["strat"]
+    pipe = tsr.PipelinedScanToMapRegistration(
+        s.params, s.reg_cfg, map_size=s.map.map_size,
+        downsample_voxel=s.map.world_voxel, device=s.device)
+    rels, ms = [], []
+    cuda = s.device.type == "cuda"
+    for i, stamp in enumerate(lio["stamps"]):
+        txn = Transaction(stamp=stamp)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not pipe.register_new_scan(stamp, lio["fcs"][i], *lio["seeds"][i],
+                                      txn):
+            raise RuntimeError(f"pipelined: scan {i} refused")
+        if i > 0:
+            ms.append(1e3 * (time.perf_counter() - t0))
+        rels += txn.rel_poses
+    txn = Transaction(stamp=99.0)
+    pipe.flush_pending(txn)
+    rels += txn.rel_poses
+    if pipe.failures or len(rels) != len(lio["rels"]):
+        raise RuntimeError(f"pipelined: {len(rels)} factors, "
+                           f"{pipe.failures} failures")
+    gap = (0.0, 0.0)
+    for fp, fs in zip(rels, lio["rels"]):
+        if (fp.stamp_i, fp.stamp_j) != (fs.stamp_i, fs.stamp_j):
+            raise RuntimeError("pipelined: factor stamps differ")
+        gap = (max(gap[0], float(np.linalg.norm(np.asarray(fp.dp)
+                                                - np.asarray(fs.dp)))),
+               max(gap[1], _so3_err(fp.dq, fs.dq)))
+    worst = _check_factors(rels, lio["poses"], lio["stamps"], "pipelined")
+    print(f"[8] pipelined: {len(rels)} factors after flush, max gap to the "
+          f"sync strategy {gap[0]:.2e} m / {gap[1]:.2e} rad (bound "
+          f"{PIPE_TOL}), worst {worst[0]:.4f} m / {worst[1]:.4f} rad off "
+          f"ground truth; register_new_scan median "
+          f"{statistics.median(ms):.2f} ms (host clock, enqueue + in-step "
+          f"syncs; {card})", flush=True)
+    if not (gap[0] <= PIPE_TOL and gap[1] <= PIPE_TOL):
+        raise RuntimeError("pipelined factors differ from the sync "
+                           "strategy's")
+
+
+def run_radius(lio):
+    """register_loam in corr_mode="radius" from a cm-level seed (the offsets
+    of tests/test_lidar.py's radius test) on two maps: the sequence's own
+    map, whose frame has drifted from the world by the registrations'
+    errors, held against the kNN registration of the same scan on that map
+    from the same seed; and a drift-free map of the same scans' features at
+    their ground-truth poses, held against ground truth."""
+    from beam_slam_tpu_torch.core import lie
+    from beam_slam_tpu_torch.lidar import registration as treg
+    from beam_slam_tpu_torch.lidar.registration_map import RegistrationMap
+    from beam_slam_tpu_torch.ops import moments
+    last, strat = lio["last"], lio["strat"]
+    q_gt, p_gt = last["gt"]
+    dev = last["world"][0].device
+    q0 = lie.quat_mul(torch.as_tensor(q_gt), lie.so3_exp_quat(
+        torch.tensor([0.008, -0.006, 0.004]))).to(dev)
+    p0 = torch.as_tensor(p_gt + np.array([0.04, -0.03, 0.02], np.float32),
+                         device=dev)
+    cfg = strat.reg_cfg._replace(corr_mode="radius")
+    gt_map = RegistrationMap(map_size=strat.map.map_size,
+                             world_voxel=strat.map.world_voxel, device=dev)
+    n = len(lio["fcs"]) - 1
+    for i in range(max(0, n - strat.map.map_size), n):
+        gt_map.add_scan(lio["stamps"][i], *lio["poses"][i], lio["fcs"][i])
+    moments.raw_moments.launches = 0
+    res = treg.register_loam(last["fc"], *last["world"], q0, p0, cfg)
+    res_gt = treg.register_loam(last["fc"], *gt_map.world_frame(), q0, p0,
+                                cfg)
+    converged = bool(res.converged) and bool(res_gt.converged)
+    launches = moments.raw_moments.launches
+    knn_res = treg.register_loam(last["fc"], *last["world"], q0, p0,
+                                 strat.reg_cfg)
+    p, p_gt_map = res.p.cpu().numpy(), res_gt.p.cpu().numpy()
+    to_knn = float(np.linalg.norm(p - knn_res.p.cpu().numpy()))
+    to_gt = float(np.linalg.norm(p - p_gt))
+    gt_err = float(np.linalg.norm(p_gt_map - p_gt))
+    print(f"[9] radius mode: converged {converged}, {int(res.n_inliers)} / "
+          f"{int(res_gt.n_inliers)} inliers; on the sequence's map "
+          f"{to_knn:.4f} m from its kNN registration (bound {RADIUS_GT}) and "
+          f"{to_gt:.4f} m from ground truth (bound {GT_TRANS}); on the "
+          f"ground-truth map {gt_err:.4f} m from ground truth (bound "
+          f"{RADIUS_GT}); {launches} K3 launches", flush=True)
+    if not (converged and to_knn < RADIUS_GT and to_gt < GT_TRANS
+            and gt_err < RADIUS_GT and (dev.type != "cuda" or launches > 0)):
+        raise RuntimeError("radius-mode registration failed")
+    return launches
+
+
 def main() -> int:
     # ---- 1. require CUDA
     if not torch.cuda.is_available():
@@ -90,16 +652,26 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; nvidia-smi: {card}", flush=True)
 
     from beam_slam_tpu_torch.ops import cholesky as chol
+    from beam_slam_tpu_torch.ops import knn, moments
     from beam_slam_tpu_torch.ops import nvcc_build
     from beam_slam_tpu_torch.solver import batched as bs
     from beam_slam_tpu_torch.solver import gauss_newton as gn
     from beam_slam_tpu_torch.utils import synthetic
 
-    # ---- 2. build K1 from csrc/
-    path, ptxas, secs = nvcc_build.build("bst_cholesky", chol.SOURCES)
-    chol.load_library()
-    regs = [ln.strip() for ln in ptxas.splitlines() if "registers" in ln]
-    print(f"[2] built {path.name} in {secs:.2f} s; ptxas: {regs}", flush=True)
+    # ---- 2. build K1, K2, K3 from csrc/, one nvcc each, all at once
+    t0 = time.perf_counter()
+    built = nvcc_build.build_many([("bst_cholesky", chol.SOURCES),
+                                   ("bst_knn", knn.SOURCES),
+                                   ("bst_moments", moments.SOURCES)])
+    for mod in (chol, knn, moments):
+        mod.load_library()
+    for name, (path, ptxas, secs) in built.items():
+        regs = [ln.strip() for ln in ptxas.splitlines()
+                if "registers" in ln]
+        print(f"[2] built {path.name} in {secs:.2f} s; ptxas: {regs}",
+              flush=True)
+    print(f"[2] all kernels built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
     # ---- 3. K1 vs its plain version on the card
     kernel, plain = chol.cholesky_solve_batched, \
@@ -222,13 +794,41 @@ def main() -> int:
           f"{launches_batched} K1 launches; median {batch_ms:.2f} ms over 3 "
           f"({BATCH / batch_ms * 1e3:.1f} windows/s, {card})", flush=True)
 
-    # ---- 6. records
+    # ---- 6.-9. the LIO front end at full width (K2, K3)
+    lio = run_lio("cuda", card=card)
+    registration_card_vs_cpu(lio)
+    registration_stages(lio, card=card)
+    kc = kernel_checks(lio, card=card)
+    run_pipelined(lio, card=card)
+    k3_launches = run_radius(lio)
+
+    # ---- 10. records
+    kb1, kb1_by = _chol_bound(1, 640)
     print(json.dumps({"kernels": [{
         "name": "cholesky_solve_batched", "route": "cuda",
         "source": "beam_slam_tpu_torch/csrc/cholesky.cu",
         "replaces": "beam_slam_tpu/ops/pallas_cholesky.py:226",
         "launches": launches_flagship + launches_batched,
         "max_abs_err": max_err, "ms": times[1][0], "plain_ms": times[1][1],
+        "bound_ms": kb1, "bound_by": kb1_by,
+        # the plain version is the library pair cholesky_ex + cholesky_solve
+        "library_ms": times[1][1],
+    }, {
+        "name": "knn_topk", "route": "cuda",
+        "source": "beam_slam_tpu_torch/csrc/knn.cu",
+        "replaces": "beam_slam_tpu/ops/pallas_knn.py:110",
+        "launches": lio["launches"], "max_abs_err": kc["k_err"],
+        "ms": kc["k_ms"], "plain_ms": kc["k_plain"],
+        "bound_ms": kc["k_bound"][0], "bound_by": kc["k_bound"][1],
+        "library_ms": kc["k_lib"],
+    }, {
+        "name": "radius_moments", "route": "cuda",
+        "source": "beam_slam_tpu_torch/csrc/moments.cu",
+        "replaces": "beam_slam_tpu/ops/pallas_moments.py:79",
+        "launches": k3_launches, "max_abs_err": kc["m_err"],
+        "ms": kc["m_ms"], "plain_ms": kc["m_plain"],
+        "bound_ms": kc["m_bound"][0], "bound_by": kc["m_bound"][1],
+        "library_ms": None,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -39,7 +39,9 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     mods = _port_modules() + ["chip_smoke"]
-    assert "beam_slam_tpu_torch.ops.cholesky" in mods
+    for kernel_module in ("cholesky", "knn", "moments"):
+        assert f"beam_slam_tpu_torch.ops.{kernel_module}" in mods
+    assert "beam_slam_tpu_torch.lidar.scan_registration" in mods
     proc = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

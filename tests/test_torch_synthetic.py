@@ -50,7 +50,7 @@ def _close(out, ref, rel, name=""):
 def test_trajectory_sample_matches_reference():
     t = np.linspace(0.0, 10.0, 41, dtype=np.float32)
     ref = jsim.AnalyticTrajectory().sample(jnp.asarray(t))
-    out = tsim.AnalyticTrajectory().sample(torch.from_numpy(t))
+    out = tsim.AnalyticTrajectory(device="cpu").sample(torch.from_numpy(t))
     for f in ref._fields:
         _close(getattr(out, f), getattr(ref, f), 1e-5, f)
 
@@ -104,7 +104,7 @@ def windows():
     build = jax.jit(lambda k: jsyn.build_lvio_window(k, **ENTRY)[:2])
     wj, fj = jax.block_until_ready(build(jax.random.PRNGKey(0)))
     wt, ft, losses = tsyn.build_lvio_window(torch.Generator().manual_seed(0),
-                                            **ENTRY)
+                                            device="cpu", **ENTRY)
     return wj, fj, wt, ft, losses
 
 
@@ -158,7 +158,8 @@ def test_build_lvio_window_census(windows):
 def test_build_lvio_batch_shares_topology():
     wb, fb, losses = tsyn.build_lvio_batch(
         torch.Generator().manual_seed(1), 2, n_kf=4, kf_dt=0.25,
-        rate_hz=50.0, with_vision=True, n_landmarks=4, obs_per_lm=2, n_idp=2)
+        rate_hz=50.0, with_vision=True, n_landmarks=4, obs_per_lm=2, n_idp=2,
+        device="cpu")
     assert wb.imu.q.shape == (2, 4, 4) and len(fb) == len(losses) == 5
     for f in fb:
         assert torch.equal(f.slots[0], f.slots[1])
