@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (beam_slam_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py        # everything below
+    python3 chip_smoke.py k1     # build, then K1's checks and times only
 
 Builds the port's three hand-written CUDA kernels with nvcc for sm_90a, one
 nvcc process each, all started together: K1 (batched Cholesky factor+solve,
-csrc/cholesky.cu), K2 (exact kNN top-k, csrc/knn.cu) and K3 (fixed-radius
-neighbourhood moments, csrc/moments.cu). Then it drives the port's paths and
-holds every kernel against its plain PyTorch version on the card:
+one thread-block cluster per system, csrc/cholesky.cu), K2 (exact kNN top-k,
+csrc/knn.cu) and K3 (fixed-radius neighbourhood moments, csrc/moments.cu).
+K1 is held against its plain version over shapes from 1×1 to 64 systems of
+640², every cluster size, a NaN-poisoned upper triangle, bad pivots and a
+bit-equal repeat, and timed. Then it drives the port's paths and holds every
+kernel against its plain PyTorch version on the card:
 
   * the flagship LVIO solve — one Levenberg–Marquardt bundle-adjustment
     solve of a 40-state window (39 IMU, 39 lidar relative-pose, 2048
@@ -220,6 +224,120 @@ def _moments_check(moments, q, r, v, rad, label):
           f"max|Δc|={c_err.max(initial=0.0):.3e}, "
           f"max|ΔS|={S_err.max(initial=0.0):.3e}", flush=True)
     return err, int(n.sum())
+
+
+def _chol_compare(chol, H, g, label, H_kernel=None, cluster=None):
+    """K1 against its plain version on one batch of SPD systems; returns
+    max |x − x_plain|. ``H_kernel`` is what the kernel is given instead of H
+    (the same lower triangle)."""
+    x, info = chol.cholesky_solve_batched(
+        H if H_kernel is None else H_kernel, g, cluster=cluster)
+    x_ref, info_ref = chol.cholesky_solve_batched_reference(H, g)
+    torch.cuda.synchronize()
+    B, N = g.shape
+    err = float((x - x_ref).abs().max())
+    scale = float(x_ref.abs().max())
+    Hs = torch.tril(H) + torch.tril(H, -1).transpose(1, 2)
+    res = float((torch.einsum("bij,bj->bi", Hs, x) - g).abs().max())
+    ok = (err <= X_TOL * scale and res <= RES_TOL * float(g.abs().max())
+          and int(info.abs().sum()) == 0 and int(info_ref.abs().sum()) == 0)
+    print(f"[3] K1 B={B} N={N}{label}: max|x-x_ref|={err:.3e} "
+          f"(bound {X_TOL * scale:.3e}), |Hx-g|inf={res:.3e}", flush=True)
+    if not ok:
+        raise RuntimeError(f"K1 disagrees with the plain version at "
+                           f"B={B} N={N}{label}")
+    return err
+
+
+def cholesky_checks(card=""):
+    """K1 against its plain version on the card: agreement over shapes and
+    cluster sizes, the upper triangle never read, bad pivots, bit-equal
+    repeats; then the times. Returns max |Δx| and the paired times."""
+    from beam_slam_tpu_torch.ops import cholesky as chol
+    kernel, plain = chol.cholesky_solve_batched, \
+        chol.cholesky_solve_batched_reference
+    slots = chol.cluster_slots(torch.cuda.current_device())
+    sizes = [C for C in sorted(slots) if slots[C] >= 1]
+    chosen = {B: chol.choose_cluster_size(B, slots) for B in (1, BATCH, 64)}
+    print(f"[3] K1 clusters: of C CTAs, one CTA to an SM, the card holds at "
+          f"once {slots}; chosen C by batch size {chosen}", flush=True)
+    gen = torch.Generator().manual_seed(0)
+    max_err = 0.0
+    for B, N in ((1, 640), (8, 640), (3, 128), (2, 200), (1, 1), (2, 7),
+                 (5, 33), (64, 640)):
+        max_err = max(max_err, _chol_compare(chol, *_spd(gen, B, N), ""))
+    for C in sizes:
+        for B, N in ((2, 200), (1, 640)):
+            max_err = max(max_err, _chol_compare(
+                chol, *_spd(gen, B, N), f" C={C}", cluster=C))
+    # more clusters than the card holds at once: the rest queue
+    C = max(sizes)
+    max_err = max(max_err, _chol_compare(
+        chol, *_spd(gen, 64, 640),
+        f" C={C} ({slots[C]} of 64 clusters resident)", cluster=C))
+    H, g = _spd(gen, 3, 640)
+    upper = torch.triu(torch.ones(640, 640, dtype=torch.bool, device="cuda"),
+                       1)
+    max_err = max(max_err, _chol_compare(
+        chol, H, g, " upper triangle NaN",
+        H_kernel=H.masked_fill(upper, float("nan")).contiguous()))
+
+    # bad pivots: first, in a late panel, last; the fourth system is sound
+    H, g = _spd(gen, 4, 640)
+    pivots = [1, 500, 640, 0]
+    for b, p in enumerate(pivots):
+        if p:
+            H[b, p - 1, p - 1] = -1.0
+    x, info = kernel(H, g)
+    x_ref, info_ref = plain(H, g)
+    torch.cuda.synchronize()
+    err = float((x[3] - x_ref[3]).abs().max())
+    if not (info.tolist() == pivots == info_ref.tolist()
+            and bool(torch.isnan(x[:3]).all())
+            and err <= X_TOL * float(x_ref[3].abs().max())):
+        raise RuntimeError(f"indefinite systems: info={info.tolist()} "
+                           f"(plain {info_ref.tolist()}), sound system off "
+                           f"by {err}")
+    H, g = _spd(gen, 2, 128)
+    H[1, 7, 7] = -1.0
+    x, info2 = kernel(H, g)
+    torch.cuda.synchronize()
+    if not (info2.tolist() == [0, 8] and bool(torch.isnan(x[1]).all())
+            and bool(torch.isfinite(x[0]).all())):
+        raise RuntimeError(f"indefinite system: info={info2.tolist()}")
+    print(f"[3] indefinite systems: info={info.tolist()} and "
+          f"{info2.tolist()} as the plain version's, x NaN there only, the "
+          f"sound system within {err:.3e}", flush=True)
+
+    # the split is static and uses no atomics: two launches, the same bits
+    H, g = _spd(gen, BATCH, 640)
+    x1, _ = kernel(H, g)
+    x2, _ = kernel(H, g)
+    torch.cuda.synchronize()
+    if not torch.equal(x1, x2):
+        raise RuntimeError("K1: two launches on one input differ")
+    print(f"[3] K1 B={BATCH} N=640: two launches give bit-equal x",
+          flush=True)
+
+    times = {}
+    for B in (1, BATCH, 64):
+        H, g = _spd(gen, B, 640)
+        times[B] = _paired_ms(lambda: kernel(H, g), lambda: plain(H, g),
+                              reps=20 if B < 64 else 5)
+        per_c = {C: round(_event_ms(lambda: kernel(H, g, cluster=C), 20), 4)
+                 for C in sizes if B < 64}
+        print(f"[3] K1 B={B} N=640: kernel {times[B][0]:.3f} ms at C="
+              f"{chosen[B]}, plain {times[B][1]:.3f} ms"
+              + (f"; kernel ms by cluster size {per_c}" if per_c else "")
+              + f" (CUDA events, {card})", flush=True)
+    # what a panel step costs at B=1: the time against N (N/32 steps)
+    by_n = {}
+    for N in (32, 64, 128, 256, 384, 512, 640):
+        H, g = _spd(gen, 1, N)
+        by_n[N] = round(_event_ms(lambda: kernel(H, g), 20), 4)
+    print(f"[3] K1 B=1 at C={chosen[1]}, kernel ms by N: {by_n} (CUDA events, "
+          f"{card})", flush=True)
+    return dict(max_err=max_err, times=times)
 
 
 def _so3_err(q_a, q_b) -> float:
@@ -639,7 +757,7 @@ def run_radius(lio):
     return launches
 
 
-def main() -> int:
+def main(only_k1: bool = False) -> int:
     # ---- 1. require CUDA
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; none is visible")
@@ -674,40 +792,13 @@ def main() -> int:
           flush=True)
 
     # ---- 3. K1 vs its plain version on the card
+    k1 = cholesky_checks(card)
+    max_err, times = k1["max_err"], k1["times"]
+    if only_k1:
+        print(card)
+        return 0
     kernel, plain = chol.cholesky_solve_batched, \
         chol.cholesky_solve_batched_reference
-    gen = torch.Generator().manual_seed(0)
-    max_err = 0.0
-    for B, N in ((1, 640), (8, 640), (3, 128), (2, 200)):
-        H, g = _spd(gen, B, N)
-        x, info = kernel(H, g)
-        x_ref, info_ref = plain(H, g)
-        torch.cuda.synchronize()
-        err = float((x - x_ref).abs().max())
-        scale = float(x_ref.abs().max())
-        res = float((torch.einsum("bij,bj->bi", H, x) - g).abs().max())
-        ok = (err <= X_TOL * scale and res <= RES_TOL * float(g.abs().max())
-              and int(info.abs().sum()) == 0 and int(info_ref.abs().sum()) == 0)
-        print(f"[3] K1 B={B} N={N}: max|x-x_ref|={err:.3e} "
-              f"(bound {X_TOL * scale:.3e}), |Hx-g|inf={res:.3e}", flush=True)
-        if not ok:
-            raise RuntimeError(f"K1 disagrees with the plain version at "
-                               f"B={B} N={N}")
-        max_err = max(max_err, err)
-    H, g = _spd(gen, 2, 128)
-    H[1, 7, 7] = -1.0
-    x, info = kernel(H, g)
-    torch.cuda.synchronize()
-    if not (int(info[1]) > 0 and bool(torch.isnan(x[1]).all())
-            and int(info[0]) == 0 and bool(torch.isfinite(x[0]).all())):
-        raise RuntimeError(f"indefinite system: info={info.tolist()}")
-    print(f"[3] indefinite system: info={info.tolist()}, x NaN", flush=True)
-    times = {}
-    for B in (1, BATCH):
-        H, g = _spd(gen, B, 640)
-        times[B] = _paired_ms(lambda: kernel(H, g), lambda: plain(H, g))
-        print(f"[3] K1 B={B} N=640: kernel {times[B][0]:.3f} ms, "
-              f"plain {times[B][1]:.3f} ms (CUDA events, {card})", flush=True)
 
     # ---- 4. flagship solve on the card
     t0 = time.perf_counter()
@@ -838,4 +929,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(only_k1=sys.argv[1:] == ["k1"]))
