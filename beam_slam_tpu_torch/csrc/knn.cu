@@ -9,41 +9,138 @@
 // kernel's packed-key approximation: the index travels beside the distance,
 // so there is no truncation of distances and no cap on R.
 //
-// What bounds it on this card: operations. Each (query, ref) pair costs ~9
-// fp32 operations (3 products, 2 sums for q.r, 3 for the expansion, one
-// compare); the bytes (Q + R points, Q*k results) are a few hundred KB.
-// At the LIO shapes (Q=7584, R=20480) that is ~1.4 GFLOP against 67 TFLOP/s.
+// What bounds it on this card: operations, and only those of valid refs.
+// Each (query, valid ref) pair costs ~9 fp32 operations (3 products, 2 sums
+// for q.r, 3 for the expansion, one compare); the bytes (Q + R points, Q*k
+// results) are a few hundred KB. On the LIO path the world map is deduped
+// into a fixed capacity with its valid points first: at (7584, 20480) only
+// ~3.5K refs are valid.
 //
-// Design (right and simple first):
-//   * one thread per query, blocks of 128 queries;
-//   * refs stream through shared memory in tiles of 1024 points, stored as
-//     float4 (x, y, z, ||r||^2) with ||r||^2 = +inf for invalid and padded
-//     refs, so an invalid ref never beats an empty slot;
-//   * each thread keeps its sorted top-k in registers (templated on k, fully
-//     unrolled insertion). Refs are visited in ascending index and the
-//     insertion orders by (distance, index), so ties keep the lower index,
-//     as the reference's top_k does;
+// Design:
+//   * a thread-block cluster of S CTAs (S in {1, 2, 4, 8}, chosen by the
+//     wrapper from what the card holds at once) takes a tile of QT = 32
+//     queries, one a lane; each of its CTAs has W = 8 warps, and every warp
+//     keeps the lane's query and a sorted k-list of (d^2, index) in
+//     registers (templated on k);
+//   * R is cut into steps of T = 64 refs, dealt round-robin to the S*W
+//     warps of the cluster (step g to warp g mod S*W), so that the valid
+//     refs, wherever they lie, spread evenly over the warps;
+//   * a warp stages its step itself: each lane loads two refs and their
+//     valid flags, and a ballot compacts the valid ones, packed as float4
+//     (x, y, z, ||r||^2) beside their index, into the warp's own slice of
+//     shared memory in ascending index. Invalid refs are never scanned; a
+//     step with none valid costs a load of flags and a ballot;
+//   * the scan reads each packed ref as one broadcast float4 and inserts
+//     where d < the list's k-th distance. A warp visits its refs in
+//     ascending index, so an equal distance already in the list has a lower
+//     index and the strict test keeps ties in index order;
+//   * merge, inside the launch, ordered by (d^2, index) so that the result
+//     does not depend on the split: warps 1..W-1 leave their lists in shared
+//     memory and warp 0 takes them in, each list until its first entry that
+//     loses; then, across the cluster, rank 0's warp 0 takes in the other
+//     ranks' merged lists over distributed shared memory, between two
+//     cluster barriers (the second keeps every rank's shared memory alive
+//     until rank 0 has read it). Every thread of every rank reaches both
+//     barriers, whatever its share of R or its queries;
 //   * slots still empty at the end (+inf) get index 0, which is in range:
 //     callers gather map[idx] before masking with isfinite(d2).
-// Known limit, left for a later PR: at Q=7584 the grid is 60 blocks for 132
-// SMs, four warps each, so the card is far from its operation bound.
+// The split is static and there are no atomics on the result, so a launch
+// is deterministic to the bit. No tensor cores: the distance is fp32 FFMA.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kBlock = 128;
-constexpr int kTile = 1024;
+constexpr int QT = 32;       // queries per cluster, one a lane
+constexpr int W = 8;         // warps per CTA
+constexpr int NT = 32 * W;   // threads per CTA
+constexpr int T = 64;        // refs per step, two a lane
+constexpr int kEmpty = 0x7fffffff;
+constexpr unsigned FULL = 0xffffffffu;
+
+// (d, i) before (e, j) in the order of the result
+__device__ __forceinline__ bool before(float d, int i, float e, int j) {
+  return d < e || (d == e && i < j);
+}
+
+// Insert (d, i) into the sorted list, where i is above every index in it:
+// slot j takes slot j-1's entry, or the new one at the first slot it beats.
+template <int K>
+__device__ __forceinline__ void insert_next(float (&bd)[K], int (&bi)[K],
+                                            float d, int i) {
+#pragma unroll
+  for (int j = K - 1; j > 0; --j) {
+    const bool here = d < bd[j], shift = d < bd[j - 1];
+    if (here) {
+      bd[j] = shift ? bd[j - 1] : d;
+      bi[j] = shift ? bi[j - 1] : i;
+    }
+  }
+  if (d < bd[0]) {
+    bd[0] = d;
+    bi[0] = i;
+  }
+}
+
+// The same for an entry of another list: ties compare indices.
+template <int K>
+__device__ __forceinline__ void insert_any(float (&bd)[K], int (&bi)[K],
+                                           float d, int i) {
+#pragma unroll
+  for (int j = K - 1; j > 0; --j) {
+    const bool here = before(d, i, bd[j], bi[j]);
+    const bool shift = before(d, i, bd[j - 1], bi[j - 1]);
+    if (here) {
+      bd[j] = shift ? bd[j - 1] : d;
+      bi[j] = shift ? bi[j - 1] : i;
+    }
+  }
+  if (before(d, i, bd[0], bi[0])) {
+    bd[0] = d;
+    bi[0] = i;
+  }
+}
+
+// Take in a sorted list of `stride`-strided entries (d at ld, index at li)
+// until its first entry that loses to the k-th.
+template <int K>
+__device__ __forceinline__ void take_in(float (&bd)[K], int (&bi)[K],
+                                        const float* ld, const int* li,
+                                        int stride) {
+#pragma unroll 1
+  for (int j = 0; j < K; ++j) {
+    const float d = ld[j * stride];
+    const int i = li[j * stride];
+    if (!before(d, i, bd[K - 1], bi[K - 1])) break;
+    insert_any(bd, bi, d, i);
+  }
+}
 
 template <int K>
-__global__ void __launch_bounds__(kBlock)
+struct Smem {
+  float4 ref[W][T];      // each warp's step: packed valid refs
+  int idx[W][T];         // ... and their indices
+  float ld[W][K][QT];    // lists for the merge: warps 1..W-1 of this CTA,
+  int li[W][K][QT];      // slot 0 this CTA's merged list for rank 0
+};
+
+template <int K>
+__global__ void __launch_bounds__(NT)
 knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
-                const bool* __restrict__ ref_valid, int64_t* __restrict__ out_idx,
-                float* __restrict__ out_d2, int Q, int R) {
-  __shared__ float4 tile[kTile];
-  const int qi = blockIdx.x * kBlock + threadIdx.x;
+                const bool* __restrict__ ref_valid,
+                int64_t* __restrict__ out_idx, float* __restrict__ out_d2,
+                int Q, int R) {
+  __shared__ Smem<K> sm;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qi = (blockIdx.x / S) * QT + lane;
   const bool active = qi < Q;
   float qx = 0.f, qy = 0.f, qz = 0.f;
   if (active) {
@@ -58,47 +155,94 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
 #pragma unroll
   for (int j = 0; j < K; ++j) {
     bd[j] = CUDART_INF_F;
-    bi[j] = 0x7fffffff;
+    bi[j] = kEmpty;
   }
+  // a ref enters where d < thr: the k-th distance; never for a lane past Q
+  float thr = active ? CUDART_INF_F : -CUDART_INF_F;
 
-  for (int base = 0; base < R; base += kTile) {
-    const int n = min(kTile, R - base);
-    __syncthreads();  // the previous tile is no longer read
-    for (int t = threadIdx.x; t < kTile; t += kBlock) {
-      float4 v = make_float4(0.f, 0.f, 0.f, CUDART_INF_F);
-      if (t < n && ref_valid[base + t]) {
-        const float rx = ref[3 * (base + t) + 0];
-        const float ry = ref[3 * (base + t) + 1];
-        const float rz = ref[3 * (base + t) + 2];
-        v = make_float4(rx, ry, rz, rx * rx + ry * ry + rz * rz);
-      }
-      tile[t] = v;
+  const unsigned below = (1u << lane) - 1u;
+  float4* sref = sm.ref[warp];
+  int* sidx = sm.idx[warp];
+  const int P = S * W;
+  const int steps = (R + T - 1) / T;
+  for (int g = rank * W + warp; g < steps; g += P) {
+    // stage: two refs a lane, the valid ones compacted in index order
+    const int r0 = g * T + lane, r1 = r0 + 32;
+    const bool ok0 = r0 < R && ref_valid[r0];
+    const bool ok1 = r1 < R && ref_valid[r1];
+    float4 v0, v1;
+    if (ok0) {
+      v0.x = ref[3 * r0 + 0];
+      v0.y = ref[3 * r0 + 1];
+      v0.z = ref[3 * r0 + 2];
+      v0.w = v0.x * v0.x + v0.y * v0.y + v0.z * v0.z;
     }
-    __syncthreads();
-    if (!active) continue;
+    if (ok1) {
+      v1.x = ref[3 * r1 + 0];
+      v1.y = ref[3 * r1 + 1];
+      v1.z = ref[3 * r1 + 2];
+      v1.w = v1.x * v1.x + v1.y * v1.y + v1.z * v1.z;
+    }
+    const unsigned b0 = __ballot_sync(FULL, ok0);
+    const unsigned b1 = __ballot_sync(FULL, ok1);
+    const int n0 = __popc(b0), n = n0 + __popc(b1);
+    __syncwarp();  // the previous step is no longer read
+    if (ok0) {
+      const int s = __popc(b0 & below);
+      sref[s] = v0;
+      sidx[s] = r0;
+    }
+    if (ok1) {
+      const int s = n0 + __popc(b1 & below);
+      sref[s] = v1;
+      sidx[s] = r1;
+    }
+    __syncwarp();
+#pragma unroll 8
     for (int t = 0; t < n; ++t) {
-      const float4 r = tile[t];
+      const float4 r = sref[t];
       const float d = qq + r.w - 2.0f * (qx * r.x + qy * r.y + qz * r.z);
-      if (d < bd[K - 1]) {  // strict: an equal distance has a higher index
-        float cd = d;
-        int ci = base + t;
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const bool lt = cd < bd[j] || (cd == bd[j] && ci < bi[j]);
-          if (lt) {
-            const float td = bd[j];
-            bd[j] = cd;
-            cd = td;
-            const int ti = bi[j];
-            bi[j] = ci;
-            ci = ti;
-          }
-        }
+      if (d < thr) {
+        insert_next(bd, bi, d, sidx[t]);
+        thr = bd[K - 1];
       }
     }
   }
 
-  if (active) {
+  // merge the CTA's W lists into warp 0's
+  if (warp > 0) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      sm.ld[warp][j][lane] = bd[j];
+      sm.li[warp][j][lane] = bi[j];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    for (int w = 1; w < W; ++w)
+      take_in(bd, bi, &sm.ld[w][0][lane], &sm.li[w][0][lane], QT);
+  }
+  // merge the cluster's S lists into rank 0's
+  if (S > 1) {
+    if (warp == 0 && rank > 0) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        sm.ld[0][j][lane] = bd[j];
+        sm.li[0][j][lane] = bi[j];
+      }
+    }
+    cluster.sync();
+    if (warp == 0 && rank == 0) {
+      for (int r = 1; r < S; ++r) {
+        const float* ld = cluster.map_shared_rank(&sm.ld[0][0][0], r);
+        const int* li = cluster.map_shared_rank(&sm.li[0][0][0], r);
+        take_in(bd, bi, ld + lane, li + lane, QT);
+      }
+    }
+    cluster.sync();  // rank 0 has read every rank's list
+  }
+
+  if (warp == 0 && rank == 0 && active) {
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       const bool empty = !(bd[j] < CUDART_INF_F);
@@ -108,24 +252,63 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
   }
 }
 
+cudaLaunchConfig_t launch_config(int clusters, int S, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)S;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)clusters * (unsigned)S, 1, 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+bool valid_cluster(int S) { return S >= 1 && S <= 8 && (S & (S - 1)) == 0; }
+
 template <int K>
 cudaError_t launch(const float* q, const float* r, const bool* v, int64_t* idx,
-                   float* d2, int Q, int R, cudaStream_t s) {
-  const int blocks = (Q + kBlock - 1) / kBlock;
-  knn_topk_kernel<K><<<blocks, kBlock, 0, s>>>(q, r, v, idx, d2, Q, R);
+                   float* d2, int Q, int R, int S, cudaStream_t stream) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config((Q + QT - 1) / QT, S, stream, &attr);
+  cudaError_t err =
+      cudaLaunchKernelEx(&cfg, knn_topk_kernel<K>, q, r, v, idx, d2, Q, R);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// How many clusters of S CTAs of the kernel (at k = 10, the most registers)
+// the current device can hold at once; 0 where it cannot schedule that size.
+extern "C" int bst_knn_max_active_clusters(int S) {
+  if (!valid_cluster(S)) return 0;
+  int n = 0;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(1, S, nullptr, &attr);
+  if (cudaOccupancyMaxActiveClusters(&n, knn_topk_kernel<10>, &cfg) !=
+      cudaSuccess) {
+    cudaGetLastError();  // the refusal is the answer; leave no error behind
+    return 0;
+  }
+  return n;
+}
+
 // Plain C interface (loaded with ctypes). query [Q,3] f32, ref [R,3] f32,
 // ref_valid [R] bool, all contiguous on the device; writes idx [Q,k] int64
-// and d2 [Q,k] f32. k must be one of 1, 5, 8, 10 (the repo's callers); any
-// other k returns cudaErrorInvalidValue without launching.
+// and d2 [Q,k] f32. One cluster of `cluster` CTAs (1, 2, 4 or 8) per 32
+// queries. k must be one of 1, 5, 8, 10 (the repo's callers); any other k,
+// Q < 1 or R < 1 returns cudaErrorInvalidValue without launching.
 extern "C" int bst_knn_topk_f32(const void* query, const void* ref,
                                 const void* ref_valid, void* out_idx,
                                 void* out_d2, int Q, int R, int k,
-                                void* stream) {
+                                int cluster, void* stream) {
+  if (Q < 1 || R < 1 || !valid_cluster(cluster))
+    return (int)cudaErrorInvalidValue;
   const float* q = static_cast<const float*>(query);
   const float* r = static_cast<const float*>(ref);
   const bool* v = static_cast<const bool*>(ref_valid);
@@ -133,10 +316,10 @@ extern "C" int bst_knn_topk_f32(const void* query, const void* ref,
   float* d2 = static_cast<float*>(out_d2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
-    case 1: return launch<1>(q, r, v, idx, d2, Q, R, s);
-    case 5: return launch<5>(q, r, v, idx, d2, Q, R, s);
-    case 8: return launch<8>(q, r, v, idx, d2, Q, R, s);
-    case 10: return launch<10>(q, r, v, idx, d2, Q, R, s);
-    default: return cudaErrorInvalidValue;
+    case 1: return (int)launch<1>(q, r, v, idx, d2, Q, R, cluster, s);
+    case 5: return (int)launch<5>(q, r, v, idx, d2, Q, R, cluster, s);
+    case 8: return (int)launch<8>(q, r, v, idx, d2, Q, R, cluster, s);
+    case 10: return (int)launch<10>(q, r, v, idx, d2, Q, R, cluster, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py        # everything below
     python3 chip_smoke.py k1     # build, then K1's checks and times only
+    python3 chip_smoke.py k2     # build, then K2's checks and times only, on
+                                 # the LIO map built at ground-truth poses
+    python3 chip_smoke.py knn-counts [cpu|cuda]
+                                 # K2's schedule (its mirror) at the LIO
+                                 # shapes: the insertions each warp runs
 
 Builds the port's three hand-written CUDA kernels with nvcc for sm_90a, one
 nvcc process each, all started together: K1 (batched Cholesky factor+solve,
@@ -114,6 +119,27 @@ def _paired_ms(kernel, plain, reps=20):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _device_ms(fn, name, reps=20):
+    """Mean time on the card's own clock (profiler) of the kernels whose
+    name holds ``name``, over ``reps`` calls of ``fn``: what the kernel
+    takes, where back-to-back calls may be paced by the host instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    if len(us) != reps or not sum(us) > 0:
+        raise RuntimeError(f"the profiler saw {len(us)} launches of {name} "
+                           f"for {reps} calls")
+    return sum(us) / reps / 1e3
+
+
 def _wall_ms(fn, reps):
     times = []
     for _ in range(reps):
@@ -132,9 +158,10 @@ def _bound(nbytes, ops):
                                        else "operations")
 
 
-def _knn_bound(Q, R, k):
-    # each (query, ref) pair: 3 products + 2 sums (q·r), ×2, 2 sums, compare
-    return _bound(Q * 12 + R * 13 + Q * k * 12, 9 * Q * R)
+def _knn_bound(Q, R, n_valid, k):
+    # each (query, valid ref) pair: 3 products + 2 sums (q·r), ×2, 2 sums,
+    # compare; an invalid ref needs no operation
+    return _bound(Q * 12 + R * 13 + Q * k * 12, 9 * Q * n_valid)
 
 
 def _moments_bound(Q, R, n_neighbours):
@@ -146,9 +173,9 @@ def _chol_bound(B, N):
     return _bound(B * (N * N + 2 * N + 1) * 4, B * (N ** 3 / 3 + 2 * N * N))
 
 
-def _knn_check(knn, q, r, v, k, label):
+def _knn_check(knn, q, r, v, k, label, cluster=None):
     """K2 vs its plain version on the card; returns max |Δd2| (finite)."""
-    idx, d2 = knn.knn_topk(q, r, v, k)
+    idx, d2 = knn.knn_topk(q, r, v, k, cluster=cluster)
     idx_p, d2_p = knn.knn_topk_reference(q, r, v, k)
     torch.cuda.synchronize()
     idx, d2, idx_p, d2_p = (t.cpu().numpy() for t in (idx, d2, idx_p, d2_p))
@@ -178,10 +205,104 @@ def _knn_check(knn, q, r, v, k, label):
     if frac < KNN_SET_FRAC:
         raise RuntimeError(f"K2 {label}: neighbour sets agree for "
                            f"{frac:.4f} of queries")
-    print(f"[7] K2 {label} Q={q.shape[0]} R={r.shape[0]} k={k}: "
+    at = "" if cluster is None else f" S={cluster}"
+    print(f"[7] K2 {label} Q={q.shape[0]} R={r.shape[0]} k={k}{at}: "
           f"max|d2-d2_plain|={err:.3e} (atol {atol:.3e}), sets agree for "
           f"{frac:.4f}", flush=True)
     return err
+
+
+def _grid_points(gen, n, span=6):
+    """Points with small integer coordinates: every distance is exact in
+    float32, whatever the order of the sums, and many are equal."""
+    return torch.randint(-span, span + 1, (n, 3), generator=gen).float()
+
+
+def knn_checks(inputs, card=""):
+    """K2 on the card: against its plain version at the LIO path's two
+    shapes (``inputs``, as ``lio_knn_inputs`` gives them) at the chosen and
+    at every cluster size, and at edge shapes; its indices equal to its
+    mirror's on duplicated refs; bit-equal repeats; then the times of both
+    LIO shapes against the plain version and ``cdist`` + ``topk``."""
+    from beam_slam_tpu_torch.ops import knn
+    dev = torch.cuda.current_device()
+    slots = knn.cluster_slots(dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sizes = [S for S in knn.CLUSTER_SIZES if slots[S] >= 1]
+    chosen = {label: knn.choose_cluster_size(q.shape[0], slots, n_sms)
+              for q, _, _, _, label in inputs}
+    print(f"[7] K2 clusters: of S CTAs, the card holds at once {slots}; "
+          f"chosen S {chosen}", flush=True)
+    err = 0.0
+    for q, r, v, k, label in inputs:
+        err = max(err, _knn_check(knn, q, r, v, k, label))
+        for S in sizes:
+            err = max(err, _knn_check(knn, q, r, v, k, label, cluster=S))
+    gen = torch.Generator().manual_seed(3)
+    rq = (torch.rand(1000, 3, generator=gen) * 20 - 10).cuda()
+    rr = (torch.rand(3001, 3, generator=gen) * 20 - 10).cuda()
+    rv = (torch.rand(3001, generator=gen) < 0.7).cuda()
+    few = torch.zeros(64, dtype=torch.bool)
+    few[[3, 17, 40]] = True
+    few = few.cuda()
+    none = torch.zeros(64, dtype=torch.bool).cuda()
+    err = max(err, _knn_check(knn, rq, rr, rv, 8, "ragged"),
+              _knn_check(knn, rq[:33], rr, rv, 5, "one query in the last tile"),
+              _knn_check(knn, rq[:100], rr[:64], few, 10, "3 valid of 64"),
+              _knn_check(knn, rq[:100], rr[:64], none, 5, "no valid ref"))
+    for S in sizes:  # R < S·W·T: most warps hold no ref, all reach the merge
+        err = max(err, _knn_check(knn, rq, rr[:100], rv[:100], 10,
+                                  "R=100", cluster=S))
+    # duplicated refs on an integer grid: exact distances, many equal, each
+    # point twice at two indices; the result is the (d², index) order
+    base = _grid_points(gen, 700)
+    dup = torch.cat([base, base[torch.randperm(700, generator=gen)]])
+    dq = _grid_points(gen, 333).cuda()
+    dup = dup.cuda()
+    dv = (torch.rand(1400, generator=gen) < 0.9).cuda()
+    for k in knn.KS:
+        for S in sizes:
+            idx, d2 = knn.knn_topk(dq, dup, dv, k, cluster=S)
+            idx_m, d2_m = knn.knn_topk_split_mirror(dq, dup, dv, k, cluster=S)
+            if not (torch.equal(idx, idx_m) and torch.equal(d2, d2_m)):
+                raise RuntimeError(f"K2 duplicated refs k={k} S={S}: the "
+                                   f"kernel's result is not its mirror's")
+        err = max(err, _knn_check(knn, dq, dup, dv, k, "duplicated refs"))
+    print(f"[7] K2 duplicated refs (333, 1400): indices and d² equal to the "
+          f"mirror's exactly at k = {list(knn.KS)} and S = {sizes}",
+          flush=True)
+    for q, r, v, k, label in inputs:
+        runs = [knn.knn_topk(q, r, v, k) for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise RuntimeError(f"K2 {label}: two launches differ")
+    print("[7] K2 at both LIO shapes: two launches give bit-equal results",
+          flush=True)
+
+    times = {}
+    for q, r, v, k, label in inputs:
+        Q, R, n_valid = q.shape[0], r.shape[0], int(v.sum())
+        k_ms, k_plain = _paired_ms(lambda: knn.knn_topk(q, r, v, k),
+                                   lambda: knn.knn_topk_reference(q, r, v, k))
+        # the library yardstick on the same inputs: invalid refs masked to
+        # +inf (it ranks distances, not their squares: the same order)
+        k_lib = _event_ms(lambda: torch.topk(
+            torch.cdist(q, r).masked_fill_(~v, float("inf")), k,
+            largest=False), 20)
+        dev_ms = _device_ms(lambda: knn.knn_topk(q, r, v, k),
+                            "knn_topk_kernel")
+        per_s = {S: round(_device_ms(
+            lambda: knn.knn_topk(q, r, v, k, cluster=S), "knn_topk_kernel"),
+            4) for S in sizes}
+        bound = _knn_bound(Q, R, n_valid, k)
+        times[label] = dict(ms=dev_ms, call_ms=k_ms, plain=k_plain,
+                            lib=k_lib, bound=bound)
+        print(f"[7] K2 {label} ({Q}, {R}, k={k}), {n_valid} valid refs: "
+              f"kernel {dev_ms:.4f} ms on the device at S={chosen[label]} "
+              f"(profiler), {k_ms:.4f} ms a call back to back (CUDA "
+              f"events); plain {k_plain:.3f} ms, cdist+topk {k_lib:.3f} ms "
+              f"(CUDA events); bound {bound[0]:.4f} ms ({bound[1]}); kernel "
+              f"device ms by cluster size {per_s} ({card})", flush=True)
+    return dict(err=err, times=times)
 
 
 def _moments_check(moments, q, r, v, rad, label):
@@ -593,6 +714,9 @@ def registration_stages(lio, card=""):
     busy = sum(e.time_range.elapsed_us() for e in on_dev) / 1e3
     knn_dev = sum(e.time_range.elapsed_us() for e in on_dev
                   if "knn_topk_kernel" in e.name) / 1e3
+    if not knn_dev > 0:
+        raise RuntimeError("the profiler shows no K2 kernel (knn_topk_kernel) "
+                           "in a registration")
     print(f"[6] register_loam unsynced: median {wall:.2f} ms over 5; under "
           f"the profiler {len(on_dev)} device ops, device time {busy:.2f} ms "
           f"(K2 {knn_dev:.2f} ms), so the card is idle "
@@ -600,22 +724,87 @@ def registration_stages(lio, card=""):
           flush=True)
 
 
-def kernel_checks(lio, card=""):
-    """K2 and K3 against their plain versions on the card at the LIO path's
-    own shapes and data, plus a ragged shape and one with fewer than k
-    valid refs; then each timed in turns."""
+def _placed(fc, q, p):
+    """A scan's edge and surface features placed in the world at (q, p)."""
     from beam_slam_tpu_torch.core import lie
-    from beam_slam_tpu_torch.ops import knn, moments
+    dev = fc.edge_strong.device
+    q = torch.as_tensor(q, device=dev)
+    p = torch.as_tensor(p, device=dev)
+    return tuple((lie.quat_rotate(q[None], torch.cat(pts)) + p[None])
+                 .contiguous() for pts in ((fc.edge_strong, fc.edge_weak),
+                                           (fc.surf_strong, fc.surf_weak)))
+
+
+def lio_knn_inputs(device):
+    """K2's inputs at the LIO path's two shapes without running a
+    registration: the last scan's features at its ground-truth pose against
+    the world map of the scans before it at theirs (the same configs,
+    shapes and map order as phase 6's map). Returns [(query, ref, valid, k,
+    label)] for edges (k=5) and surfaces (k=10)."""
+    from beam_slam_tpu_torch.lidar import features as feat
+    from beam_slam_tpu_torch.lidar import scan_registration as tsr
+    from beam_slam_tpu_torch.lidar.registration_map import RegistrationMap
+    cloud = _load_scan()
+    poses = _lio_poses(LIO_SCANS)
+    strat, feat_cfg = tsr.create_scan_registration(
+        *LIO_JSON, config_root=str(ROOT / "configs"), device=device)
+    grid_dev = None if device == "cuda" else device
+    fcs = [feat.extract_features(_observed_grid(cloud, q, p, grid_dev),
+                                 feat_cfg) for q, p in poses]
+    world = RegistrationMap(map_size=strat.map.map_size,
+                            world_voxel=strat.map.world_voxel, device=device)
+    n = len(fcs) - 1
+    for i in range(max(0, n - world.map_size), n):
+        world.add_scan(0.1 * i, *poses[i], fcs[i])
+    me, mev, ms_, msv = world.world_frame()
+    e_q, s_q = _placed(fcs[n], *poses[n])
+    return [(e_q, me, mev, 5, "edges"), (s_q, ms_, msv, 10, "surfaces")]
+
+
+def knn_counts(device):
+    """Insertions of K2's schedule (its mirror) at the LIO shapes: per warp,
+    the valid refs it scans and the refs at which some lane inserts into
+    its k-list, for S·W = 1, 8, 32 parts of R, with and without the shared
+    threshold; the map in its own order (valid refs first) and shuffled."""
+    from beam_slam_tpu_torch.ops import knn
+    for q, r, v, k, label in lio_knn_inputs(device):
+        perm = torch.randperm(r.shape[0], generator=torch.Generator()
+                              .manual_seed(0)).to(r.device)
+        for order, (rr, vv) in (("map order", (r, v)),
+                                ("shuffled", (r[perm].contiguous(),
+                                              v[perm].contiguous()))):
+            for S, W in ((1, 1), (1, 8), (4, 8)):
+                for prune in (None, "<="):
+                    c = {}
+                    t0 = time.perf_counter()
+                    knn.knn_topk_split_mirror(q, rr, vv, k, cluster=S,
+                                              warps=W, prune=prune, counts=c)
+                    w = c["warp_insertions"].double()
+                    n = c["scanned"].double()
+                    print(f"[counts] {label} ({q.shape[0]}, {r.shape[0]}, "
+                          f"k={k}), {int(v.sum())} valid, {order}, S·W={S * W}"
+                          f" (S={S}, W={W}), threshold "
+                          f"{'off' if prune is None else 'on'}: valid refs "
+                          f"a warp scans mean {float(n.mean()):.1f}, max "
+                          f"{int(n.max())}; warp insertion steps mean "
+                          f"{float(w.mean()):.1f}, max {int(w.max())}; "
+                          f"lane insertions per query "
+                          f"{c['lane_insertions'] / q.shape[0]:.1f} "
+                          f"({time.perf_counter() - t0:.1f} s, {device})",
+                          flush=True)
+
+
+def kernel_checks(lio, card=""):
+    """K2 (``knn_checks``) and K3 against their plain versions on the card
+    at the LIO path's own shapes and data, and at edge shapes; then each
+    timed in turns."""
+    from beam_slam_tpu_torch.ops import moments
     last = lio["last"]
     me, mev, ms_, msv = last["world"]
-    fc = last["fc"]
+    e_map, s_map = _placed(last["fc"], *last["gt"])
+    k2 = knn_checks([(e_map, me, mev, 5, "edges"),
+                     (s_map, ms_, msv, 10, "surfaces")], card)
     dev = me.device
-    q = torch.as_tensor(last["gt"][0], device=dev)
-    p = torch.as_tensor(last["gt"][1], device=dev)
-    edges = torch.cat([fc.edge_strong, fc.edge_weak])
-    surfs = torch.cat([fc.surf_strong, fc.surf_weak])
-    e_map = (lie.quat_rotate(q[None], edges) + p[None]).contiguous()
-    s_map = (lie.quat_rotate(q[None], surfs) + p[None]).contiguous()
     gen = torch.Generator().manual_seed(3)
     rq = (torch.rand(1000, 3, generator=gen) * 20 - 10).to(dev)
     rr = (torch.rand(3001, 3, generator=gen) * 20 - 10).to(dev)
@@ -623,11 +812,6 @@ def kernel_checks(lio, card=""):
     few = torch.zeros(64, dtype=torch.bool)
     few[[3, 17, 40]] = True
     few = few.to(dev)
-    k_err = max(
-        _knn_check(knn, e_map, me, mev, 5, "edges"),
-        _knn_check(knn, s_map, ms_, msv, 10, "surfaces"),
-        _knn_check(knn, rq, rr, rv, 8, "ragged"),
-        _knn_check(knn, rq[:100], rr[:64], few, 10, "3 valid of 64"))
     m_err, n_nb = 0.0, 0
     for args in ((e_map, me, mev, 0.35, "edges"),
                  (s_map, ms_, msv, 0.3, "surfaces"),
@@ -639,27 +823,15 @@ def kernel_checks(lio, card=""):
             n_nb = n
     # timed in turns at the surface shape (the larger of the two)
     Q, R = s_map.shape[0], ms_.shape[0]
-    k_ms, k_plain = _paired_ms(lambda: knn.knn_topk(s_map, ms_, msv, 10),
-                               lambda: knn.knn_topk_reference(s_map, ms_,
-                                                              msv, 10))
-    # the library yardstick on the same inputs: invalid refs masked to +inf
-    # (it ranks distances, not their squares: the same order)
-    k_lib = _event_ms(lambda: torch.topk(
-        torch.cdist(s_map, ms_).masked_fill_(~msv, float("inf")), 10,
-        largest=False), 20)
     m_ms, m_plain = _paired_ms(
         lambda: moments.raw_moments(s_map, ms_, msv, 0.3),
         lambda: moments.raw_moments_reference(s_map, ms_, msv, 0.3))
-    kb, kb_by = _knn_bound(Q, R, 10)
     mb, mb_by = _moments_bound(Q, R, n_nb)
-    print(f"[7] K2 at ({Q}, {R}, k=10): kernel {k_ms:.3f} ms, plain "
-          f"{k_plain:.3f} ms, cdist+topk {k_lib:.3f} ms, bound {kb:.4f} ms "
-          f"({kb_by}); K3 at ({Q}, {R}, rad=0.3): kernel {m_ms:.3f} ms, "
-          f"plain {m_plain:.3f} ms, no single PyTorch call computes it, "
-          f"bound {mb:.4f} ms ({mb_by}) (CUDA events, {card})", flush=True)
-    return dict(k_err=k_err, k_ms=k_ms, k_plain=k_plain, k_lib=k_lib,
-                k_bound=(kb, kb_by), m_err=m_err, m_ms=m_ms,
-                m_plain=m_plain, m_bound=(mb, mb_by))
+    print(f"[7] K3 at ({Q}, {R}, rad=0.3): kernel {m_ms:.3f} ms, plain "
+          f"{m_plain:.3f} ms, no single PyTorch call computes it, bound "
+          f"{mb:.4f} ms ({mb_by}) (CUDA events, {card})", flush=True)
+    return dict(k2=k2, m_err=m_err, m_ms=m_ms, m_plain=m_plain,
+                m_bound=(mb, mb_by))
 
 
 def run_pipelined(lio, card=""):
@@ -757,7 +929,7 @@ def run_radius(lio):
     return launches
 
 
-def main(only_k1: bool = False) -> int:
+def main(only: str = "") -> int:
     # ---- 1. require CUDA
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; none is visible")
@@ -778,23 +950,31 @@ def main(only_k1: bool = False) -> int:
 
     # ---- 2. build K1, K2, K3 from csrc/, one nvcc each, all at once
     t0 = time.perf_counter()
-    built = nvcc_build.build_many([("bst_cholesky", chol.SOURCES),
-                                   ("bst_knn", knn.SOURCES),
-                                   ("bst_moments", moments.SOURCES)])
-    for mod in (chol, knn, moments):
+    libs = {"bst_cholesky": chol, "bst_knn": knn, "bst_moments": moments}
+    if only:
+        libs = {f"bst_{dict(k1='cholesky', k2='knn')[only]}":
+                dict(k1=chol, k2=knn)[only]}
+    built = nvcc_build.build_many([(name, mod.SOURCES)
+                                   for name, mod in libs.items()])
+    for mod in libs.values():
         mod.load_library()
     for name, (path, ptxas, secs) in built.items():
         regs = [ln.strip() for ln in ptxas.splitlines()
-                if "registers" in ln]
+                if "registers" in ln or "spill" in ln]
         print(f"[2] built {path.name} in {secs:.2f} s; ptxas: {regs}",
               flush=True)
     print(f"[2] all kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
+    if only == "k2":  # K2 alone, on a map built at ground-truth poses
+        knn_checks(lio_knn_inputs("cuda"), card)
+        print(card)
+        return 0
+
     # ---- 3. K1 vs its plain version on the card
     k1 = cholesky_checks(card)
     max_err, times = k1["max_err"], k1["times"]
-    if only_k1:
+    if only == "k1":
         print(card)
         return 0
     kernel, plain = chol.cholesky_solve_batched, \
@@ -893,8 +1073,9 @@ def main(only_k1: bool = False) -> int:
     run_pipelined(lio, card=card)
     k3_launches = run_radius(lio)
 
-    # ---- 10. records
+    # ---- 10. records (K2 at the surface shape, the larger of the two)
     kb1, kb1_by = _chol_bound(1, 640)
+    k2s = kc["k2"]["times"]["surfaces"]
     print(json.dumps({"kernels": [{
         "name": "cholesky_solve_batched", "route": "cuda",
         "source": "beam_slam_tpu_torch/csrc/cholesky.cu",
@@ -908,10 +1089,10 @@ def main(only_k1: bool = False) -> int:
         "name": "knn_topk", "route": "cuda",
         "source": "beam_slam_tpu_torch/csrc/knn.cu",
         "replaces": "beam_slam_tpu/ops/pallas_knn.py:110",
-        "launches": lio["launches"], "max_abs_err": kc["k_err"],
-        "ms": kc["k_ms"], "plain_ms": kc["k_plain"],
-        "bound_ms": kc["k_bound"][0], "bound_by": kc["k_bound"][1],
-        "library_ms": kc["k_lib"],
+        "launches": lio["launches"], "max_abs_err": kc["k2"]["err"],
+        "ms": k2s["ms"], "plain_ms": k2s["plain"],
+        "bound_ms": k2s["bound"][0], "bound_by": k2s["bound"][1],
+        "library_ms": k2s["lib"],
     }, {
         "name": "radius_moments", "route": "cuda",
         "source": "beam_slam_tpu_torch/csrc/moments.cu",
@@ -929,4 +1110,9 @@ def main(only_k1: bool = False) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(only_k1=sys.argv[1:] == ["k1"]))
+    if sys.argv[1:2] == ["knn-counts"]:
+        knn_counts((sys.argv[2:] or ["cuda"])[0])
+        sys.exit(0)
+    if sys.argv[1:] not in ([], ["k1"], ["k2"]):
+        sys.exit(f"usage: {sys.argv[0]} [k1 | k2 | knn-counts [cpu|cuda]]")
+    sys.exit(main(only=(sys.argv[1:] or [""])[0]))

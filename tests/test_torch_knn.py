@@ -142,3 +142,119 @@ def test_wrapper_rejects_bad_input(bad):
         k = 7
     with pytest.raises((TypeError, ValueError)):
         knn.knn_topk(q, r, v, k)
+
+
+# ---- the split schedule of the CUDA kernel, mirrored on the CPU
+
+
+def _mirror(q, r, valid, k, **kw):
+    idx, d2 = knn.knn_topk_split_mirror(torch.from_numpy(q),
+                                        torch.from_numpy(r),
+                                        torch.from_numpy(valid), k, **kw)
+    return idx.numpy(), d2.numpy()
+
+
+@pytest.mark.parametrize("Q,R,k,p_valid,cluster", [
+    (300, 1000, 5, 0.8, 1),
+    (257, 513, 8, 0.5, 2),    # ragged Q and R
+    (33, 2000, 10, 0.3, 4),   # one query in the last tile
+    (40, 50, 10, 0.9, 8),     # R under one step: 63 of 64 parts empty
+    (40, 30, 10, 0.2, 1),     # fewer than k valid refs: +inf slots
+    (17, 64, 1, 1.0, 2),
+    (20, 200, 5, 0.0, 1),     # no valid ref
+])
+def test_mirror_matches_xla_exact(Q, R, k, p_valid, cluster):
+    q, r, valid = _inputs(Q + R + k + cluster, Q, R, p_valid)
+    i_ref, d_ref = pallas_knn.knn_topk(jnp.asarray(q), jnp.asarray(r),
+                                       jnp.asarray(valid), k,
+                                       backend="xla_exact")
+    idx, d2 = _mirror(q, r, valid, k, cluster=cluster)
+    assert idx.dtype == np.int64 and d2.dtype == np.float32
+    assert idx.shape == d2.shape == (Q, k)
+    assert np.all(idx[np.isinf(d2)] == 0)  # empty slots hold index 0
+    _assert_same_neighbours(idx, d2, np.asarray(i_ref), np.asarray(d_ref),
+                            q, R)
+
+
+def _duplicated(seed, Q, n):
+    """Integer coordinates (every distance exact in float32, many equal),
+    each ref point twice, at two indices."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-6, 7, (n, 3)).astype(np.float32)
+    r = np.concatenate([base, base[rng.permutation(n)]])
+    q = rng.integers(-6, 7, (Q, 3)).astype(np.float32)
+    return q, r, rng.random(2 * n) < 0.9
+
+
+@pytest.mark.parametrize("k,cluster", [(1, 1), (5, 2), (8, 4), (10, 1),
+                                       (10, 8)])
+def test_mirror_duplicated_refs_equal_stable_sort(k, cluster):
+    q, r, valid = _duplicated(k + cluster, 70, 300)
+    idx, d2 = _mirror(q, r, valid, k, cluster=cluster)
+    d = ((q * q).sum(1)[:, None] + (r * r).sum(1)[None]
+         - 2.0 * q.astype(np.float64) @ r.T.astype(np.float64))
+    d = np.where(valid[None], d, np.inf)
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]  # (d², index)
+    np.testing.assert_array_equal(idx, order)
+    np.testing.assert_array_equal(d2, np.take_along_axis(d, order, 1))
+
+
+def test_threshold_le_keeps_lower_index_tie():
+    """k=1, two warps, warp 1 a round ahead of warp 0. Warp 1's first step
+    holds index 64 at distance 1 and publishes it; warp 0 then meets index
+    10 at the same distance. The lower index wins the tie: ``<=`` keeps it,
+    ``<`` would drop it. In lockstep the later ref has the higher index, so
+    both rules agree."""
+    q = np.zeros((1, 3), np.float32)
+    r = np.full((128, 3), 5.0, np.float32)
+    r[64] = (1.0, 0.0, 0.0)
+    r[10] = (0.0, 1.0, 0.0)
+    valid = np.ones(128, bool)
+    for prune, lag, want in (("<=", 1, 10), (None, 1, 10), ("<", 1, 64),
+                             ("<", 0, 10)):
+        idx, d2 = _mirror(q, r, valid, 1, warps=2, prune=prune, lag=lag)
+        assert idx[0, 0] == want and d2[0, 0] == 1.0, (prune, lag)
+
+
+def test_threshold_prunes_without_changing_the_result():
+    q, r, valid = _inputs(11, 64, 3000, 0.8)
+    counts = {}
+    out = {}
+    for prune in (None, "<="):
+        counts[prune] = {}
+        out[prune] = _mirror(q, r, valid, 10, prune=prune,
+                             counts=counts[prune])
+    out["lag"] = _mirror(q, r, valid, 10, lag=2)
+    for a, b, c in zip(out[None], out["<="], out["lag"]):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    on, off = counts["<="], counts[None]
+    assert on["lane_insertions"] < off["lane_insertions"]
+    assert bool((on["warp_insertions"] <= off["warp_insertions"]).all())
+    # every valid ref is scanned once, by one warp of each query tile
+    assert int(on["scanned"][0].sum()) == int(valid.sum())
+
+
+# clusters of S CTAs the card holds at once (132 SMs; 8 refused)
+SLOTS = {1: 264, 2: 132, 4: 64, 8: 32}
+
+
+@pytest.mark.parametrize("Q,slots,expected", [
+    (7584, SLOTS, 1),          # 237 tiles × 8 warps fill 132 SMs at S=1
+    (2112, SLOTS, 2),          # 66 tiles need two CTAs each
+    (1000, SLOTS, 8),          # 32 tiles: not even at S=8; the largest
+    (100, {1: 264, 2: 132, 4: 64, 8: 0}, 4),
+    (4224, SLOTS, 1), (4192, SLOTS, 2),   # 132 and 131 tiles
+    (5, {1: 264}, 1)])
+def test_cluster_size_rule(Q, slots, expected):
+    assert knn.choose_cluster_size(Q, slots, 132) == expected
+
+
+def test_cluster_override_is_checked():
+    q = torch.zeros(4, 3)
+    r = torch.zeros(6, 3)
+    v = torch.ones(6, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        knn.knn_topk(q, r, v, 2, cluster=3)
+    idx, _ = knn.knn_topk(q, r, v, 2, cluster=4)  # ignored off the card
+    assert idx.shape == (4, 2)
