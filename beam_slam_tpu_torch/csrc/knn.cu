@@ -25,11 +25,13 @@
 //   * R is cut into steps of T = 64 refs, dealt round-robin to the S*W
 //     warps of the cluster (step g to warp g mod S*W), so that the valid
 //     refs, wherever they lie, spread evenly over the warps;
-//   * a warp stages its step itself: each lane loads two refs and their
-//     valid flags, and a ballot compacts the valid ones, packed as float4
-//     (x, y, z, ||r||^2) beside their index, into the warp's own slice of
-//     shared memory in ascending index. Invalid refs are never scanned; a
-//     step with none valid costs a load of flags and a ballot;
+//   * a warp stages its steps itself, B = 4 at once: each lane loads two
+//     refs of each and their valid flags, all loads in flight together, so
+//     that the warp waits one L2 round trip per B steps; a ballot compacts
+//     each step's valid refs, packed as float4 (x, y, z, ||r||^2) beside
+//     their index, into the warp's own slice of shared memory in ascending
+//     index. Invalid refs are never scanned; a step with none valid costs
+//     its loads and a ballot;
 //   * the scan reads each packed ref as one broadcast float4 and inserts
 //     where d < the list's k-th distance. A warp visits its refs in
 //     ascending index, so an equal distance already in the list has a lower
@@ -60,6 +62,7 @@ constexpr int QT = 32;       // queries per cluster, one a lane
 constexpr int W = 8;         // warps per CTA
 constexpr int NT = 32 * W;   // threads per CTA
 constexpr int T = 64;        // refs per step, two a lane
+constexpr int B = 4;         // steps a warp loads at once
 constexpr int kEmpty = 0x7fffffff;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -134,11 +137,18 @@ __device__ __forceinline__ void take_in(float (&bd)[K], int (&bi)[K],
 
 template <int K>
 struct Smem {
-  float4 ref[W][T];      // each warp's step: packed valid refs
-  int idx[W][T];         // ... and their indices
-  float ld[W][K][QT];    // lists for the merge: warps 1..W-1 of this CTA,
-  int li[W][K][QT];      // slot 0 this CTA's merged list for rank 0
-  int kth[QT];           // the least k-th distance a warp published (key)
+  union {
+    struct {
+      float4 ref[W][B][T];  // each warp's B steps: packed valid refs
+      int idx[W][B][T];     // ... and their indices
+      int n[W][B];          // ... and how many
+    } scan;
+    struct {
+      float ld[W][K][QT];   // lists for the merge: warps 1..W-1 of this
+      int li[W][K][QT];     // CTA, slot 0 its merged list for rank 0
+    } merge;
+  };
+  int kth[QT];              // the least k-th distance a warp published (key)
 };
 
 template <int K>
@@ -178,88 +188,104 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
   float published = CUDART_INF_F;
 
   const unsigned below = (1u << lane) - 1u;
-  float4* sref = sm.ref[warp];
-  int* sidx = sm.idx[warp];
   const int P = S * W;
   const int steps = (R + T - 1) / T;
-  for (int g = rank * W + warp; g < steps; g += P) {
-    // stage: two refs a lane, the valid ones compacted in index order
-    const int r0 = g * T + lane, r1 = r0 + 32;
-    const bool ok0 = r0 < R && ref_valid[r0];
-    const bool ok1 = r1 < R && ref_valid[r1];
-    float4 v0, v1;
-    if (ok0) {
-      v0.x = ref[3 * r0 + 0];
-      v0.y = ref[3 * r0 + 1];
-      v0.z = ref[3 * r0 + 2];
-      v0.w = v0.x * v0.x + v0.y * v0.y + v0.z * v0.z;
-    }
-    if (ok1) {
-      v1.x = ref[3 * r1 + 0];
-      v1.y = ref[3 * r1 + 1];
-      v1.z = ref[3 * r1 + 2];
-      v1.w = v1.x * v1.x + v1.y * v1.y + v1.z * v1.z;
-    }
-    const unsigned b0 = __ballot_sync(FULL, ok0);
-    const unsigned b1 = __ballot_sync(FULL, ok1);
-    const int n0 = __popc(b0), n = n0 + __popc(b1);
-    __syncwarp();  // the previous step is no longer read
-    if (ok0) {
-      const int s = __popc(b0 & below);
-      sref[s] = v0;
-      sidx[s] = r0;
-    }
-    if (ok1) {
-      const int s = n0 + __popc(b1 & below);
-      sref[s] = v1;
-      sidx[s] = r1;
-    }
-    __syncwarp();
-    // the shared k-th only falls, so a stale read is safe
-    const float pass = nextafterf(from_key(sm.kth[lane]), CUDART_INF_F);
-    if (active) thr = fminf(bd[K - 1], pass);
-#pragma unroll 8
-    for (int t = 0; t < n; ++t) {
-      const float4 r = sref[t];
-      const float d = qq + r.w - 2.0f * (qx * r.x + qy * r.y + qz * r.z);
-      if (d < thr) {
-        insert_next(bd, bi, d, sidx[t]);
-        thr = fminf(bd[K - 1], pass);
+  for (int g0 = rank * W + warp; g0 < steps; g0 += B * P) {
+    // load the warp's next B steps (g0, g0 + P, ...) at once, two refs a
+    // lane each, the coordinates whether valid or not, so that every load
+    // is in flight before the first is used
+    bool ok[B][2];
+    float x[B][2], y[B][2], z[B][2];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (g0 + b * P) * T + h * 32 + lane;
+        ok[b][h] = r < R && ref_valid[r];
+        x[b][h] = y[b][h] = z[b][h] = 0.f;
+        if (r < R) {
+          x[b][h] = ref[3 * r + 0];
+          y[b][h] = ref[3 * r + 1];
+          z[b][h] = ref[3 * r + 2];
+        }
       }
     }
-    if (active && bd[K - 1] < published) {
-      published = bd[K - 1];
-      atomicMin(&sm.kth[lane], order_key(published));
+    // pack them: each step's valid refs compacted in index order
+    __syncwarp();  // the previous batch is no longer read
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const unsigned m0 = __ballot_sync(FULL, ok[b][0]);
+      const unsigned m1 = __ballot_sync(FULL, ok[b][1]);
+      const int n0 = __popc(m0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (ok[b][h]) {
+          const int s = h == 0 ? __popc(m0 & below)
+                               : n0 + __popc(m1 & below);
+          sm.scan.ref[warp][b][s] =
+              make_float4(x[b][h], y[b][h], z[b][h],
+                          x[b][h] * x[b][h] + y[b][h] * y[b][h] +
+                              z[b][h] * z[b][h]);
+          sm.scan.idx[warp][b][s] = (g0 + b * P) * T + h * 32 + lane;
+        }
+      }
+      if (lane == 0) sm.scan.n[warp][b] = n0 + __popc(m1);
+    }
+    __syncwarp();
+    for (int b = 0; b < B; ++b) {
+      const int n = sm.scan.n[warp][b];
+      if (n == 0) continue;
+      const float4* sref = sm.scan.ref[warp][b];
+      const int* sidx = sm.scan.idx[warp][b];
+      // the shared k-th only falls, so a stale read is safe
+      const float pass = nextafterf(from_key(sm.kth[lane]), CUDART_INF_F);
+      if (active) thr = fminf(bd[K - 1], pass);
+#pragma unroll 8
+      for (int t = 0; t < n; ++t) {
+        const float4 r = sref[t];
+        const float d = qq + r.w - 2.0f * (qx * r.x + qy * r.y + qz * r.z);
+        if (d < thr) {
+          insert_next(bd, bi, d, sidx[t]);
+          thr = fminf(bd[K - 1], pass);
+        }
+      }
+      if (active && bd[K - 1] < published) {
+        published = bd[K - 1];
+        atomicMin(&sm.kth[lane], order_key(published));
+      }
     }
   }
+  __syncthreads();  // the scan buffers become the merge buffers
 
   // merge the CTA's W lists into warp 0's
   if (warp > 0) {
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      sm.ld[warp][j][lane] = bd[j];
-      sm.li[warp][j][lane] = bi[j];
+      sm.merge.ld[warp][j][lane] = bd[j];
+      sm.merge.li[warp][j][lane] = bi[j];
     }
   }
   __syncthreads();
   if (warp == 0) {
     for (int w = 1; w < W; ++w)
-      take_in(bd, bi, &sm.ld[w][0][lane], &sm.li[w][0][lane], QT);
+      take_in(bd, bi, &sm.merge.ld[w][0][lane], &sm.merge.li[w][0][lane],
+              QT);
   }
   // merge the cluster's S lists into rank 0's
   if (S > 1) {
     if (warp == 0 && rank > 0) {
 #pragma unroll
       for (int j = 0; j < K; ++j) {
-        sm.ld[0][j][lane] = bd[j];
-        sm.li[0][j][lane] = bi[j];
+        sm.merge.ld[0][j][lane] = bd[j];
+        sm.merge.li[0][j][lane] = bi[j];
       }
     }
     cluster.sync();
     if (warp == 0 && rank == 0) {
       for (int r = 1; r < S; ++r) {
-        const float* ld = cluster.map_shared_rank(&sm.ld[0][0][0], r);
-        const int* li = cluster.map_shared_rank(&sm.li[0][0][0], r);
+        const float* ld =
+            cluster.map_shared_rank(&sm.merge.ld[0][0][0], r);
+        const int* li = cluster.map_shared_rank(&sm.merge.li[0][0][0], r);
         take_in(bd, bi, ld + lane, li + lane, QT);
       }
     }
