@@ -66,17 +66,6 @@ constexpr int B = 4;         // steps a warp loads at once
 constexpr int kEmpty = 0x7fffffff;
 constexpr unsigned FULL = 0xffffffffu;
 
-// An int whose signed order is the float order (for atomicMin on floats of
-// either sign), and back.
-__device__ __forceinline__ int order_key(float f) {
-  const int b = __float_as_int(f);
-  return b >= 0 ? b : b ^ 0x7fffffff;
-}
-
-__device__ __forceinline__ float from_key(int key) {
-  return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
-}
-
 // (d, i) before (e, j) in the order of the result
 __device__ __forceinline__ bool before(float d, int i, float e, int j) {
   return d < e || (d == e && i < j);
@@ -148,7 +137,6 @@ struct Smem {
       int li[W][K][QT];     // CTA, slot 0 its merged list for rank 0
     } merge;
   };
-  int kth[QT];              // the least k-th distance a warp published (key)
 };
 
 template <int K>
@@ -171,8 +159,6 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
     qz = query[3 * qi + 2];
   }
   const float qq = qx * qx + qy * qy + qz * qz;
-  if (threadIdx.x < QT) sm.kth[threadIdx.x] = order_key(CUDART_INF_F);
-  __syncthreads();
 
   float bd[K];
   int bi[K];
@@ -181,11 +167,8 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
     bd[j] = CUDART_INF_F;
     bi[j] = kEmpty;
   }
-  // a ref enters where d < thr = min(own k-th, the shared one's successor):
-  // d < own k-th and d <= the least k-th any warp of the CTA has published;
-  // never for a lane past Q
+  // a ref enters where d < thr: the k-th distance; never for a lane past Q
   float thr = active ? CUDART_INF_F : -CUDART_INF_F;
-  float published = CUDART_INF_F;
 
   const unsigned below = (1u << lane) - 1u;
   const int P = S * W;
@@ -237,21 +220,14 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
       if (n == 0) continue;
       const float4* sref = sm.scan.ref[warp][b];
       const int* sidx = sm.scan.idx[warp][b];
-      // the shared k-th only falls, so a stale read is safe
-      const float pass = nextafterf(from_key(sm.kth[lane]), CUDART_INF_F);
-      if (active) thr = fminf(bd[K - 1], pass);
 #pragma unroll 8
       for (int t = 0; t < n; ++t) {
         const float4 r = sref[t];
         const float d = qq + r.w - 2.0f * (qx * r.x + qy * r.y + qz * r.z);
         if (d < thr) {
           insert_next(bd, bi, d, sidx[t]);
-          thr = fminf(bd[K - 1], pass);
+          thr = bd[K - 1];
         }
-      }
-      if (active && bd[K - 1] < published) {
-        published = bd[K - 1];
-        atomicMin(&sm.kth[lane], order_key(published));
       }
     }
   }

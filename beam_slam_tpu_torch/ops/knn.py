@@ -133,7 +133,7 @@ def knn_topk_reference(query: torch.Tensor, ref: torch.Tensor,
 
 def knn_topk_split_mirror(query: torch.Tensor, ref: torch.Tensor,
                           ref_valid: torch.Tensor, k: int, cluster: int = 1,
-                          warps: int = WARPS, prune: Optional[str] = "<=",
+                          warps: int = WARPS, prune: Optional[str] = None,
                           lag: int = 0, counts: Optional[dict] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA kernel's schedule in plain PyTorch, for tests and counts.
