@@ -14,30 +14,25 @@
 // for q.r, 3 for the expansion, one compare); the bytes (Q + R points, Q*k
 // results) are a few hundred KB. On the LIO path the world map is deduped
 // into a fixed capacity with its valid points first: at (7584, 20480) only
-// ~3.5K refs are valid.
+// ~3.5K refs are valid. What holds it above that bound is the insertions:
+// a lane inserts where a ref beats its k-th, and the whole warp runs the
+// insertion when any lane does. Each of the S*W parts of R warms up k-lists
+// of its own, and with a few hundred valid refs a part the lists are still
+// warming up when the part ends.
 //
-// Design:
+// Design (grid and staging in ref_steps.cuh, shared with K3):
 //   * a thread-block cluster of S CTAs (S in {1, 2, 4, 8}, chosen by the
-//     wrapper from what the card holds at once) takes a tile of QT = 32
-//     queries, one a lane; each of its CTAs has W = 8 warps, and every warp
-//     keeps the lane's query and a sorted k-list of (d^2, index) in
-//     registers (templated on k);
-//   * R is cut into steps of T = 64 refs, dealt round-robin to the S*W
-//     warps of the cluster (step g to warp g mod S*W), so that the valid
-//     refs, wherever they lie, spread evenly over the warps;
-//   * a warp stages its steps itself, B = 4 at once: each lane loads two
-//     refs of each and their valid flags, all loads in flight together, so
-//     that the warp waits one L2 round trip per B steps; a ballot compacts
-//     each step's valid refs, packed as float4 (x, y, z, ||r||^2) beside
-//     their index, into the warp's own slice of shared memory in ascending
-//     index. Invalid refs are never scanned; a step with none valid costs
-//     its loads and a ballot;
-//   * the scan reads each packed ref as one broadcast float4 and inserts
-//     where d < the list's k-th distance. A warp visits its refs in
-//     ascending index, so an equal distance already in the list has a lower
-//     index and the strict test keeps ties in index order;
+//     wrapper from what the card holds at once) takes a tile of 32 queries,
+//     one a lane; its CTAs have 8 warps each. R is dealt to the cluster's
+//     S*8 warps in steps of 64 refs, round-robin; a warp stages four of its
+//     steps at once, compacted to their valid refs, in shared memory;
+//   * every warp keeps the lane's sorted k-list of (d^2, index) in
+//     registers (templated on k). The scan reads each packed ref as one
+//     broadcast float4 and inserts where d < the list's k-th. A warp visits
+//     its refs in ascending index, so an equal distance already in the list
+//     has a lower index and the strict test keeps ties in index order;
 //   * merge, inside the launch, ordered by (d^2, index) so that the result
-//     does not depend on the split: warps 1..W-1 leave their lists in shared
+//     does not depend on the split: warps 1..7 leave their lists in shared
 //     memory and warp 0 takes them in, each list until its first entry that
 //     loses; then, across the cluster, rank 0's warp 0 takes in the other
 //     ranks' merged lists over distributed shared memory, between two
@@ -46,25 +41,25 @@
 //     barriers, whatever its share of R or its queries;
 //   * slots still empty at the end (+inf) get index 0, which is in range:
 //     callers gather map[idx] before masking with isfinite(d2).
-// The split is static and there are no atomics on the result, so a launch
-// is deterministic to the bit. No tensor cores: the distance is fp32 FFMA.
+// A threshold shared by a CTA's warps (enter only where d <= the least k-th
+// any of them has published) cut the insertions by ~12% on the LIO data
+// and measured slower than it saved; it is not here.
+// The split is static and there are no atomics, so a launch is
+// deterministic to the bit. No tensor cores: the distance is fp32 FFMA.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "ref_steps.cuh"
+
 namespace cg = cooperative_groups;
+using namespace bst;
 
 namespace {
 
-constexpr int QT = 32;       // queries per cluster, one a lane
-constexpr int W = 8;         // warps per CTA
-constexpr int NT = 32 * W;   // threads per CTA
-constexpr int T = 64;        // refs per step, two a lane
-constexpr int B = 4;         // steps a warp loads at once
 constexpr int kEmpty = 0x7fffffff;
-constexpr unsigned FULL = 0xffffffffu;
 
 // (d, i) before (e, j) in the order of the result
 __device__ __forceinline__ bool before(float d, int i, float e, int j) {
@@ -109,34 +104,27 @@ __device__ __forceinline__ void insert_any(float (&bd)[K], int (&bi)[K],
   }
 }
 
-// Take in a sorted list of `stride`-strided entries (d at ld, index at li)
-// until its first entry that loses to the k-th.
+// Take in a sorted list of QT-strided entries (d at ld, index at li) until
+// its first entry that loses to the k-th.
 template <int K>
 __device__ __forceinline__ void take_in(float (&bd)[K], int (&bi)[K],
-                                        const float* ld, const int* li,
-                                        int stride) {
+                                        const float* ld, const int* li) {
 #pragma unroll 1
   for (int j = 0; j < K; ++j) {
-    const float d = ld[j * stride];
-    const int i = li[j * stride];
+    const float d = ld[j * QT];
+    const int i = li[j * QT];
     if (!before(d, i, bd[K - 1], bi[K - 1])) break;
     insert_any(bd, bi, d, i);
   }
 }
 
 template <int K>
-struct Smem {
-  union {
-    struct {
-      float4 ref[W][B][T];  // each warp's B steps: packed valid refs
-      int idx[W][B][T];     // ... and their indices
-      int n[W][B];          // ... and how many
-    } scan;
-    struct {
-      float ld[W][K][QT];   // lists for the merge: warps 1..W-1 of this
-      int li[W][K][QT];     // CTA, slot 0 its merged list for rank 0
-    } merge;
-  };
+union Smem {
+  Staged scan[W];        // each warp's staged steps
+  struct {
+    float ld[W][K][QT];  // lists for the merge: warps 1..W-1 of this CTA,
+    int li[W][K][QT];    // slot 0 its merged list for rank 0
+  } merge;
 };
 
 template <int K>
@@ -170,68 +158,25 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
   // a ref enters where d < thr: the k-th distance; never for a lane past Q
   float thr = active ? CUDART_INF_F : -CUDART_INF_F;
 
-  const unsigned below = (1u << lane) - 1u;
+  Staged& st = sm.scan[warp];
   const int P = S * W;
   const int steps = (R + T - 1) / T;
   for (int g0 = rank * W + warp; g0 < steps; g0 += B * P) {
-    // load the warp's next B steps (g0, g0 + P, ...) at once, two refs a
-    // lane each, the coordinates whether valid or not, so that every load
-    // is in flight before the first is used
-    bool ok[B][2];
-    float x[B][2], y[B][2], z[B][2];
-#pragma unroll
+    stage_steps(ref, ref_valid, R, g0, P, lane, st);
     for (int b = 0; b < B; ++b) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = (g0 + b * P) * T + h * 32 + lane;
-        ok[b][h] = r < R && ref_valid[r];
-        x[b][h] = y[b][h] = z[b][h] = 0.f;
-        if (r < R) {
-          x[b][h] = ref[3 * r + 0];
-          y[b][h] = ref[3 * r + 1];
-          z[b][h] = ref[3 * r + 2];
-        }
-      }
-    }
-    // pack them: each step's valid refs compacted in index order
-    __syncwarp();  // the previous batch is no longer read
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      const unsigned m0 = __ballot_sync(FULL, ok[b][0]);
-      const unsigned m1 = __ballot_sync(FULL, ok[b][1]);
-      const int n0 = __popc(m0);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (ok[b][h]) {
-          const int s = h == 0 ? __popc(m0 & below)
-                               : n0 + __popc(m1 & below);
-          sm.scan.ref[warp][b][s] =
-              make_float4(x[b][h], y[b][h], z[b][h],
-                          x[b][h] * x[b][h] + y[b][h] * y[b][h] +
-                              z[b][h] * z[b][h]);
-          sm.scan.idx[warp][b][s] = (g0 + b * P) * T + h * 32 + lane;
-        }
-      }
-      if (lane == 0) sm.scan.n[warp][b] = n0 + __popc(m1);
-    }
-    __syncwarp();
-    for (int b = 0; b < B; ++b) {
-      const int n = sm.scan.n[warp][b];
-      if (n == 0) continue;
-      const float4* sref = sm.scan.ref[warp][b];
-      const int* sidx = sm.scan.idx[warp][b];
+      const int n = st.n[b];
 #pragma unroll 8
       for (int t = 0; t < n; ++t) {
-        const float4 r = sref[t];
+        const float4 r = st.ref[b][t];
         const float d = qq + r.w - 2.0f * (qx * r.x + qy * r.y + qz * r.z);
         if (d < thr) {
-          insert_next(bd, bi, d, sidx[t]);
+          insert_next(bd, bi, d, st.idx[b][t]);
           thr = bd[K - 1];
         }
       }
     }
   }
-  __syncthreads();  // the scan buffers become the merge buffers
+  __syncthreads();  // the staging buffers become the merge buffers
 
   // merge the CTA's W lists into warp 0's
   if (warp > 0) {
@@ -244,8 +189,7 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
   __syncthreads();
   if (warp == 0) {
     for (int w = 1; w < W; ++w)
-      take_in(bd, bi, &sm.merge.ld[w][0][lane], &sm.merge.li[w][0][lane],
-              QT);
+      take_in(bd, bi, &sm.merge.ld[w][0][lane], &sm.merge.li[w][0][lane]);
   }
   // merge the cluster's S lists into rank 0's
   if (S > 1) {
@@ -259,10 +203,9 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
     cluster.sync();
     if (warp == 0 && rank == 0) {
       for (int r = 1; r < S; ++r) {
-        const float* ld =
-            cluster.map_shared_rank(&sm.merge.ld[0][0][0], r);
+        const float* ld = cluster.map_shared_rank(&sm.merge.ld[0][0][0], r);
         const int* li = cluster.map_shared_rank(&sm.merge.li[0][0][0], r);
-        take_in(bd, bi, ld + lane, li + lane, QT);
+        take_in(bd, bi, ld + lane, li + lane);
       }
     }
     cluster.sync();  // rank 0 has read every rank's list
@@ -277,24 +220,6 @@ knn_topk_kernel(const float* __restrict__ query, const float* __restrict__ ref,
     }
   }
 }
-
-cudaLaunchConfig_t launch_config(int clusters, int S, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)S;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)clusters * (unsigned)S, 1, 1);
-  cfg.blockDim = dim3(NT, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-bool valid_cluster(int S) { return S >= 1 && S <= 8 && (S & (S - 1)) == 0; }
 
 template <int K>
 cudaError_t launch(const float* q, const float* r, const bool* v, int64_t* idx,
@@ -312,16 +237,7 @@ cudaError_t launch(const float* q, const float* r, const bool* v, int64_t* idx,
 // How many clusters of S CTAs of the kernel (at k = 10, the most registers)
 // the current device can hold at once; 0 where it cannot schedule that size.
 extern "C" int bst_knn_max_active_clusters(int S) {
-  if (!valid_cluster(S)) return 0;
-  int n = 0;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config(1, S, nullptr, &attr);
-  if (cudaOccupancyMaxActiveClusters(&n, knn_topk_kernel<10>, &cfg) !=
-      cudaSuccess) {
-    cudaGetLastError();  // the refusal is the answer; leave no error behind
-    return 0;
-  }
-  return n;
+  return max_active_clusters(knn_topk_kernel<10>, S);
 }
 
 // Plain C interface (loaded with ctypes). query [Q,3] f32, ref [R,3] f32,

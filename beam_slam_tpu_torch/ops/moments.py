@@ -6,26 +6,31 @@ the count, centroid and centred scatter of the valid refs within ``rad``:
 ``lidar/registration.py::_radius_moments``. On a CUDA tensor the [Q,13] raw
 moments [1, x, y, z, 9 outer products] come from the hand-written Hopper
 kernel of ``csrc/moments.cu`` (replacing the TPU kernel
-``beam_slam_tpu/ops/pallas_moments.py::radius_moments``); on a CPU tensor
-from the plain version beside it, the reference's blocked-matmul form. The
-finishing step (centroid, S = m2 − n·c cᵀ) is shared. A failing build or
-launch raises: there is no fallback from the card to the plain version.
+``beam_slam_tpu/ops/pallas_moments.py::radius_moments``), on K2's grid: a
+thread-block cluster of S CTAs per 32 queries, R split over its warps, S
+chosen by :func:`beam_slam_tpu_torch.ops.knn.choose_cluster_size`; on a CPU
+tensor from the plain version beside it, the reference's blocked-matmul
+form. The finishing step (centroid, S = m2 − n·c cᵀ) is shared. A failing
+build or launch raises: there is no fallback from the card to the plain
+version.
 
-Invalid refs are pushed to the reference's 1e5 sentinel on both paths.
-The kernel sums each query's neighbours one by one in fp32, the matmul in
-blocks: n agrees exactly, c to ~1e-6 relative, and S, the difference of
-two sums of size n·‖r‖², to ~1e-6·n·max‖r‖² absolute.
+Invalid refs stand at the reference's 1e5 sentinel on both paths (the
+kernel counts them instead of scanning them). The kernel sums each part's
+neighbours one by one in fp32 and then the parts, the matmul in blocks: n
+agrees exactly, c to ~1e-6 relative, and S, the difference of two sums of
+size n·‖r‖², to ~1e-6·n·max‖r‖² absolute.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from beam_slam_tpu_torch.ops import nvcc_build
+from beam_slam_tpu_torch.ops.knn import CLUSTER_SIZES, choose_cluster_size
 
 SOURCES = ("moments.cu",)
 SENTINEL = 1.0e5
@@ -39,9 +44,21 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     fn = lib.bst_radius_moments_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
+                                           ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.bst_moments_max_active_clusters.argtypes = [ctypes.c_int]
+    lib.bst_moments_max_active_clusters.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def cluster_slots(device_index: int) -> Dict[int, int]:
+    """Cluster size → clusters of the kernel the card holds at once (0
+    where it cannot schedule the size), as the runtime reports it."""
+    fn = load_library().bst_moments_max_active_clusters
+    with torch.cuda.device(device_index):
+        return {S: max(fn(S), 0) for S in CLUSTER_SIZES}
 
 
 def _check(query, ref, ref_valid) -> None:
@@ -100,10 +117,15 @@ def radius_moments_reference(query, ref, ref_valid, rad: float):
 
 
 def raw_moments(query: torch.Tensor, ref: torch.Tensor,
-                ref_valid: torch.Tensor, rad: float) -> torch.Tensor:
+                ref_valid: torch.Tensor, rad: float,
+                cluster: Optional[int] = None) -> torch.Tensor:
     """[Q,13] raw moments of each query's radius-``rad`` neighbourhood: the
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    kernel on a CUDA tensor, the plain version on a CPU tensor. ``cluster``
+    overrides the number of CTAs that split R for each 32 queries (a
+    measurement knob; the default is K2's rule on this kernel's limits)."""
     _check(query, ref, ref_valid)
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster size {cluster} not in {CLUSTER_SIZES}")
     rad = float(rad)
     if query.device.type == "cpu":
         return raw_moments_reference(query, ref, ref_valid, rad)
@@ -114,10 +136,15 @@ def raw_moments(query: torch.Tensor, ref: torch.Tensor,
     if Q == 0:
         return mom
     fn = load_library().bst_radius_moments_f32
+    if cluster is None:
+        dev = query.device.index
+        cluster = choose_cluster_size(
+            Q, cluster_slots(dev),
+            torch.cuda.get_device_properties(dev).multi_processor_count)
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(query.data_ptr(), ref.data_ptr(), ref_valid.data_ptr(),
-                 mom.data_ptr(), Q, R, rad * rad, stream)
+                 mom.data_ptr(), Q, R, rad * rad, cluster, stream)
     if err != 0:
         raise RuntimeError(f"moments kernel launch failed: cudaError {err}")
     raw_moments.launches += 1

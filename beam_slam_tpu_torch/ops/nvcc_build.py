@@ -38,10 +38,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str, sources: Sequence[str]) -> Tuple[Path, list]:
-    """(cached .so path, the source paths) of library ``name``."""
+    """(cached .so path, the source paths) of library ``name``; the hash
+    covers the sources, the headers of csrc/ and the flags."""
     paths = [CSRC / s for s in sources]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so", paths

@@ -5,6 +5,7 @@
     python3 chip_smoke.py k1     # build, then K1's checks and times only
     python3 chip_smoke.py k2     # build, then K2's checks and times only, on
                                  # the LIO map built at ground-truth poses
+    python3 chip_smoke.py k3     # the same for K3
     python3 chip_smoke.py knn-counts [cpu|cuda]
                                  # K2's schedule (its mirror) at the LIO
                                  # shapes: the insertions each warp runs
@@ -165,9 +166,11 @@ def _knn_bound(Q, R, n_valid, k):
     return _bound(Q * 12 + R * 13 + Q * k * 12, 9 * Q * n_valid)
 
 
-def _moments_bound(Q, R, n_neighbours):
-    # 9 per pair for distance and test, 16 per neighbour for the moments
-    return _bound(Q * 12 + R * 13 + Q * 52, 9 * Q * R + 16 * n_neighbours)
+def _moments_bound(Q, R, n_valid, n_neighbours):
+    # 9 per (query, valid ref) pair for distance and test, 16 per neighbour
+    # for the moments; an invalid ref needs no operation
+    return _bound(Q * 12 + R * 13 + Q * 52,
+                  9 * Q * n_valid + 16 * n_neighbours)
 
 
 def _chol_bound(B, N):
@@ -311,10 +314,10 @@ def knn_checks(inputs, card=""):
     return dict(err=err, times=times)
 
 
-def _moments_check(moments, q, r, v, rad, label):
+def _moments_check(moments, q, r, v, rad, label, cluster=None):
     """K3 vs its plain version on the card; returns (max |Δ| over c and S,
     neighbours found)."""
-    mom = moments.raw_moments(q, r, v, rad)
+    mom = moments.raw_moments(q, r, v, rad, cluster=cluster)
     mom_p = moments.raw_moments_reference(q, r, v, rad)
     n, c, S = (t.cpu().numpy() for t in moments.finish(mom))
     n_p, c_p, S_p = (t.cpu().numpy() for t in moments.finish(mom_p))
@@ -345,7 +348,8 @@ def _moments_check(moments, q, r, v, rad, label):
                            f"{int((~c_ok).sum())}/{int((~S_ok).sum())} "
                            f"queries")
     err = float(max(c_err.max(initial=0.0), S_err.max(initial=0.0)))
-    print(f"[7] K3 {label} Q={q.shape[0]} R={r.shape[0]} rad={rad}: n "
+    at = "" if cluster is None else f" S={cluster}"
+    print(f"[7] K3 {label} Q={q.shape[0]} R={r.shape[0]} rad={rad}{at}: n "
           f"exact at {int(same.sum())} of {len(n)} queries, the rest only by "
           f"refs on the radius ({int(n.sum())} neighbours), "
           f"max|Δc|={c_err.max(initial=0.0):.3e}, "
@@ -800,44 +804,92 @@ def knn_counts(device):
                           flush=True)
 
 
-def kernel_checks(lio, card=""):
-    """K2 (``knn_checks``) and K3 against their plain versions on the card
-    at the LIO path's own shapes and data, and at edge shapes; then each
-    timed in turns."""
-    from beam_slam_tpu_torch.ops import moments
-    last = lio["last"]
-    me, mev, ms_, msv = last["world"]
-    e_map, s_map = _placed(last["fc"], *last["gt"])
-    k2 = knn_checks([(e_map, me, mev, 5, "edges"),
-                     (s_map, ms_, msv, 10, "surfaces")], card)
-    dev = me.device
+MOMENT_RADII = {"edges": 0.35, "surfaces": 0.3}
+
+
+def moments_checks(inputs, card=""):
+    """K3 on the card: against its plain version at the LIO path's two
+    shapes (``inputs`` as ``lio_knn_inputs`` gives them, at the radii of
+    MOMENT_RADII) at the chosen and at every cluster size, and at edge
+    shapes; bit-equal repeats; then the times of both LIO shapes against the
+    plain version."""
+    from beam_slam_tpu_torch.ops import knn, moments
+    dev = torch.cuda.current_device()
+    slots = moments.cluster_slots(dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sizes = [S for S in knn.CLUSTER_SIZES if slots[S] >= 1]
+    chosen = {label: knn.choose_cluster_size(q.shape[0], slots, n_sms)
+              for q, _, _, _, label in inputs}
+    print(f"[7] K3 clusters: of S CTAs, the card holds at once {slots}; "
+          f"chosen S {chosen}", flush=True)
+    err, n_nb = 0.0, {}
+    for q, r, v, _, label in inputs:
+        e, n_nb[label] = _moments_check(moments, q, r, v,
+                                        MOMENT_RADII[label], label)
+        err = max(err, e)
+        for S in sizes:
+            err = max(err, _moments_check(moments, q, r, v,
+                                          MOMENT_RADII[label], label,
+                                          cluster=S)[0])
     gen = torch.Generator().manual_seed(3)
-    rq = (torch.rand(1000, 3, generator=gen) * 20 - 10).to(dev)
-    rr = (torch.rand(3001, 3, generator=gen) * 20 - 10).to(dev)
-    rv = (torch.rand(3001, generator=gen) < 0.7).to(dev)
+    rq = (torch.rand(1000, 3, generator=gen) * 20 - 10).cuda()
+    rr = (torch.rand(3001, 3, generator=gen) * 20 - 10).cuda()
+    rv = (torch.rand(3001, generator=gen) < 0.7).cuda()
     few = torch.zeros(64, dtype=torch.bool)
     few[[3, 17, 40]] = True
-    few = few.to(dev)
-    m_err, n_nb = 0.0, 0
-    for args in ((e_map, me, mev, 0.35, "edges"),
-                 (s_map, ms_, msv, 0.3, "surfaces"),
-                 (rq, rr, rv, 1.5, "ragged"),
-                 (rq[:100], rr[:64], few, 30.0, "3 valid of 64")):
-        err, n = _moments_check(moments, *args)
-        m_err = max(m_err, err)
-        if args[-1] == "surfaces":
-            n_nb = n
-    # timed in turns at the surface shape (the larger of the two)
-    Q, R = s_map.shape[0], ms_.shape[0]
-    m_ms, m_plain = _paired_ms(
-        lambda: moments.raw_moments(s_map, ms_, msv, 0.3),
-        lambda: moments.raw_moments_reference(s_map, ms_, msv, 0.3))
-    mb, mb_by = _moments_bound(Q, R, n_nb)
-    print(f"[7] K3 at ({Q}, {R}, rad=0.3): kernel {m_ms:.3f} ms, plain "
-          f"{m_plain:.3f} ms, no single PyTorch call computes it, bound "
-          f"{mb:.4f} ms ({mb_by}) (CUDA events, {card})", flush=True)
-    return dict(k2=k2, m_err=m_err, m_ms=m_ms, m_plain=m_plain,
-                m_bound=(mb, mb_by))
+    few = few.cuda()
+    for args in ((rq, rr, rv, 1.5, "ragged"),
+                 (rq[:100], rr[:64], few, 30.0, "3 valid of 64"),
+                 # the 61 invalid refs stand at the sentinel, inside 3e5
+                 (rq[:100], rr[:64], few, 3e5, "sentinel inside the radius"),
+                 (rq[:33], rr, rv, 2.0, "one query in the last tile")):
+        err = max(err, _moments_check(moments, *args)[0])
+    for S in sizes:  # R < S·W·T: most warps hold no ref, all reach the merge
+        err = max(err, _moments_check(moments, rq, rr[:100], rv[:100], 4.0,
+                                      "R=100", cluster=S)[0])
+    for q, r, v, _, label in inputs:
+        a, b = (moments.raw_moments(q, r, v, MOMENT_RADII[label])
+                for _ in range(2))
+        if not torch.equal(a, b):
+            raise RuntimeError(f"K3 {label}: two launches differ")
+    print("[7] K3 at both LIO shapes: two launches give bit-equal moments",
+          flush=True)
+
+    times = {}
+    for q, r, v, _, label in inputs:
+        Q, R, n_valid, rad = q.shape[0], r.shape[0], int(v.sum()), \
+            MOMENT_RADII[label]
+        m_ms, m_plain = _paired_ms(
+            lambda: moments.raw_moments(q, r, v, rad),
+            lambda: moments.raw_moments_reference(q, r, v, rad))
+        dev_ms = _device_ms(lambda: moments.raw_moments(q, r, v, rad),
+                            "radius_moments_kernel")
+        per_s = {S: round(_device_ms(
+            lambda: moments.raw_moments(q, r, v, rad, cluster=S),
+            "radius_moments_kernel"), 4) for S in sizes}
+        bound = _moments_bound(Q, R, n_valid, n_nb[label])
+        times[label] = dict(ms=dev_ms, call_ms=m_ms, plain=m_plain,
+                            bound=bound)
+        print(f"[7] K3 {label} ({Q}, {R}, rad={rad}), {n_valid} valid refs, "
+              f"{n_nb[label]} neighbours: kernel {dev_ms:.4f} ms on the "
+              f"device at S={chosen[label]} (profiler), {m_ms:.4f} ms a call "
+              f"back to back (CUDA events); plain {m_plain:.3f} ms (CUDA "
+              f"events), no single PyTorch call computes it; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); kernel device ms by cluster "
+              f"size {per_s} ({card})", flush=True)
+    return dict(err=err, times=times)
+
+
+def kernel_checks(lio, card=""):
+    """K2 (``knn_checks``) and K3 (``moments_checks``) against their plain
+    versions on the card at the LIO path's own shapes and data, and at edge
+    shapes; then each timed."""
+    last = lio["last"]
+    me, mev, ms_, msv = last["world"]
+    inputs = [(q, r, v, k, label) for q, (r, v), k, label in zip(
+        _placed(last["fc"], *last["gt"]), ((me, mev), (ms_, msv)), (5, 10),
+        ("edges", "surfaces"))]
+    return dict(k2=knn_checks(inputs, card), k3=moments_checks(inputs, card))
 
 
 def run_pipelined(lio, card=""):
@@ -958,8 +1010,8 @@ def main(only: str = "") -> int:
     t0 = time.perf_counter()
     libs = {"bst_cholesky": chol, "bst_knn": knn, "bst_moments": moments}
     if only:
-        libs = {f"bst_{dict(k1='cholesky', k2='knn')[only]}":
-                dict(k1=chol, k2=knn)[only]}
+        libs = {name: mod for name, mod in libs.items()
+                if mod is dict(k1=chol, k2=knn, k3=moments)[only]}
     built = nvcc_build.build_many([(name, mod.SOURCES)
                                    for name, mod in libs.items()])
     for mod in libs.values():
@@ -972,8 +1024,9 @@ def main(only: str = "") -> int:
     print(f"[2] all kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    if only == "k2":  # K2 alone, on a map built at ground-truth poses
-        knn_checks(lio_knn_inputs("cuda"), card)
+    if only in ("k2", "k3"):  # alone, on a map built at ground-truth poses
+        (knn_checks if only == "k2" else moments_checks)(
+            lio_knn_inputs("cuda"), card)
         print(card)
         return 0
 
@@ -1082,6 +1135,7 @@ def main(only: str = "") -> int:
     # ---- 10. records (K2 at the surface shape, the larger of the two)
     kb1, kb1_by = _chol_bound(1, 640)
     k2s = kc["k2"]["times"]["surfaces"]
+    k3s = kc["k3"]["times"]["surfaces"]
     print(json.dumps({"kernels": [{
         "name": "cholesky_solve_batched", "route": "cuda",
         "source": "beam_slam_tpu_torch/csrc/cholesky.cu",
@@ -1103,9 +1157,9 @@ def main(only: str = "") -> int:
         "name": "radius_moments", "route": "cuda",
         "source": "beam_slam_tpu_torch/csrc/moments.cu",
         "replaces": "beam_slam_tpu/ops/pallas_moments.py:79",
-        "launches": k3_launches, "max_abs_err": kc["m_err"],
-        "ms": kc["m_ms"], "plain_ms": kc["m_plain"],
-        "bound_ms": kc["m_bound"][0], "bound_by": kc["m_bound"][1],
+        "launches": k3_launches, "max_abs_err": kc["k3"]["err"],
+        "ms": k3s["ms"], "plain_ms": k3s["plain"],
+        "bound_ms": k3s["bound"][0], "bound_by": k3s["bound"][1],
         "library_ms": None,
     }]}))
     print(card)
@@ -1119,6 +1173,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["knn-counts"]:
         knn_counts((sys.argv[2:] or ["cuda"])[0])
         sys.exit(0)
-    if sys.argv[1:] not in ([], ["k1"], ["k2"]):
-        sys.exit(f"usage: {sys.argv[0]} [k1 | k2 | knn-counts [cpu|cuda]]")
+    if sys.argv[1:] not in ([], ["k1"], ["k2"], ["k3"]):
+        sys.exit(f"usage: {sys.argv[0]} [k1 | k2 | k3 | knn-counts "
+                 f"[cpu|cuda]]")
     sys.exit(main(only=(sys.argv[1:] or [""])[0]))

@@ -108,3 +108,15 @@ def test_registration_call_site_reaches_the_wrapper():
     ref = _port(q, r, valid, 0.8)
     for a, b in zip(out, ref):
         np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_cluster_override_is_checked():
+    """The kernel's cluster size is a measurement knob: only the sizes the
+    kernel takes; ignored off the card."""
+    q, r, valid = (torch.from_numpy(a) for a in _inputs(9, 20, 50))
+    with pytest.raises(ValueError):
+        moments.raw_moments(q, r, valid, 1.0, cluster=3)
+    torch.testing.assert_close(moments.raw_moments(q, r, valid, 1.0,
+                                                   cluster=4),
+                               moments.raw_moments_reference(q, r, valid,
+                                                             1.0))
