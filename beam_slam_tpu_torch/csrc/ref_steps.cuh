@@ -6,11 +6,12 @@
 // of T = 64 refs, dealt round-robin to the S*W warps of the cluster (step g
 // to warp g mod S*W), so that the valid refs, wherever they lie, spread
 // evenly over the warps. A warp stages B = 4 of its steps at once: each lane
-// loads two refs of each and their valid flags, all loads in flight
-// together, so that the warp waits one L2 round trip per B steps; a ballot
-// compacts each step's valid refs, packed as float4 (x, y, z, ||r||^2),
-// into the warp's own slice of shared memory in ascending index. Invalid
-// refs are never scanned.
+// takes two refs of each, loads the valid flags of all eight together and
+// then the coordinates of the valid ones together, so that the warp waits
+// two L2 round trips per B steps and reads no coordinate of an invalid
+// ref; a ballot compacts each step's valid refs, packed as float4 (x, y, z,
+// ||r||^2), into the warp's own slice of shared memory in ascending index.
+// Invalid refs are never scanned.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -39,18 +40,26 @@ __device__ __forceinline__ int stage_steps(const float* __restrict__ ref,
                                            const bool* __restrict__ ref_valid,
                                            int R, int g0, int P, int lane,
                                            Staged& st) {
-  // every load in flight before the first is used: the coordinates are
-  // loaded whether the ref is valid or not
+  // the flags of all B steps in flight at once, then the coordinates of
+  // the valid refs among them: two L2 round trips per B steps, and no
+  // coordinate of an invalid ref read
   bool ok[B][2];
-  float x[B][2], y[B][2], z[B][2];
 #pragma unroll
   for (int b = 0; b < B; ++b) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = (g0 + b * P) * T + h * 32 + lane;
       ok[b][h] = r < R && ref_valid[r];
+    }
+  }
+  float x[B][2], y[B][2], z[B][2];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (g0 + b * P) * T + h * 32 + lane;
       x[b][h] = y[b][h] = z[b][h] = 0.f;
-      if (r < R) {
+      if (ok[b][h]) {
         x[b][h] = ref[3 * r + 0];
         y[b][h] = ref[3 * r + 1];
         z[b][h] = ref[3 * r + 2];

@@ -840,10 +840,12 @@ def moments_checks(inputs, card=""):
     few = few.cuda()
     for args in ((rq, rr, rv, 1.5, "ragged"),
                  (rq[:100], rr[:64], few, 30.0, "3 valid of 64"),
-                 # the 61 invalid refs stand at the sentinel, inside 3e5
-                 (rq[:100], rr[:64], few, 3e5, "sentinel inside the radius"),
                  (rq[:33], rr, rv, 2.0, "one query in the last tile")):
         err = max(err, _moments_check(moments, *args)[0])
+    # the 61 invalid refs stand at the sentinel, inside 3e5; its moments are
+    # ~1e11, so its error is held to its own bound and left out of err
+    _moments_check(moments, rq[:100], rr[:64], few, 3e5,
+                   "sentinel inside the radius")
     for S in sizes:  # R < S·W·T: most warps hold no ref, all reach the merge
         err = max(err, _moments_check(moments, rq, rr[:100], rv[:100], 4.0,
                                       "R=100", cluster=S)[0])
