@@ -128,18 +128,23 @@ def _device_ms(fn, name, reps=20):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and name in e.name]
-    # the profiler may drop an event now and then: the mean of those seen
-    if len(us) < reps // 2 or not sum(us) > 0:
-        raise RuntimeError(f"the profiler saw {len(us)} launches of {name} "
-                           f"for {reps} calls")
-    return sum(us) / len(us) / 1e3
+    # the profiler now and then loses most of a window's events: take the
+    # fullest of three windows, and the mean of the launches it saw
+    best = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name in e.name]
+        best = max(best, us, key=len)
+        if len(best) == reps:
+            break
+    if not (best and sum(best) > 0):
+        raise RuntimeError(f"the profiler saw no launch of {name}")
+    return sum(best) / len(best) / 1e3
 
 
 def _wall_ms(fn, reps):
@@ -716,17 +721,21 @@ def registration_stages(lio, card=""):
     wall = _wall_ms(reg, 5)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        reg()
-        torch.cuda.synchronize()
-    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in on_dev) / 1e3
-    knn_dev = sum(e.time_range.elapsed_us() for e in on_dev
-                  if "knn_topk_kernel" in e.name) / 1e3
-    if not knn_dev > 0:
+    for _ in range(3):  # the profiler now and then loses events: retry
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            reg()
+            torch.cuda.synchronize()
+        on_dev = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        knn_dev = sum(e.time_range.elapsed_us() for e in on_dev
+                      if "knn_topk_kernel" in e.name) / 1e3
+        if knn_dev > 0:
+            break
+    else:
         raise RuntimeError("the profiler shows no K2 kernel (knn_topk_kernel) "
                            "in a registration")
+    busy = sum(e.time_range.elapsed_us() for e in on_dev) / 1e3
     print(f"[6] register_loam unsynced: median {wall:.2f} ms over 5; under "
           f"the profiler {len(on_dev)} device ops, device time {busy:.2f} ms "
           f"(K2 {knn_dev:.2f} ms), so the card is idle "
