@@ -142,16 +142,20 @@ def knn_topk_split_mirror(query: torch.Tensor, ref: torch.Tensor,
     ``cluster``·``warps``, one part a warp. For every query a part keeps a
     sorted k-list of (d², index) of its own refs, visited in ascending
     index (invalid refs, at +inf, never enter). A ref enters when d < the
-    list's k-th distance (strict: the list's refs have lower indices) and,
-    with ``prune``, when d <= the CTA's shared threshold: the least k-th
-    distance that any of its warps had published when the step began. The
-    warps go in rounds of one step each; ``lag`` starts part p's steps
-    lag·(P−1−p) rounds late, so that the higher parts run ahead, as warps
-    drift apart on the card (0: lockstep). ``<=`` is the rule: a ref at
-    another part's k-th distance may still win on a lower index. ``"<"`` is
-    that wrong rule, kept to show what it drops; None publishes nothing.
-    The part lists are merged by (d², index); slots still empty hold +inf
-    and index 0.
+    list's k-th distance (strict: the list's refs have lower indices). The
+    part lists are merged by (d², index); slots still empty hold +inf and
+    index 0. That is the kernel (``prune=None``).
+
+    ``prune`` adds a threshold shared by a CTA's warps, which the kernel
+    measured slower than the insertions it saved and does not have; the
+    counts of ``chip_smoke.py knn-counts`` compare the two. With it a ref
+    enters only when also d <= the least k-th distance that any of the
+    CTA's warps had published when the step began. The warps go in rounds
+    of one step each; ``lag`` starts part p's steps lag·(P−1−p) rounds
+    late, so that the higher parts run ahead, as warps drift apart on the
+    card (0: lockstep). ``<=`` is the rule: a ref at another part's k-th
+    distance may still win on a lower index. ``"<"`` is that wrong rule,
+    kept to show what it drops.
 
     ``counts``, if given, receives, per query tile and part,
     ``warp_insertions`` (refs at which some lane of the warp inserts, so

@@ -256,7 +256,8 @@ def knn_checks(inputs, card=""):
     few = few.cuda()
     none = torch.zeros(64, dtype=torch.bool).cuda()
     err = max(err, _knn_check(knn, rq, rr, rv, 8, "ragged"),
-              _knn_check(knn, rq[:33], rr, rv, 5, "one query in the last tile"),
+              _knn_check(knn, rq[:33], rr, rv, 5,
+                         "one query in the last tile"),
               _knn_check(knn, rq[:100], rr[:64], few, 10, "3 valid of 64"),
               _knn_check(knn, rq[:100], rr[:64], none, 5, "no valid ref"))
     for S in sizes:  # R < S·W·T: most warps hold no ref, all reach the merge
@@ -801,8 +802,8 @@ def knn_counts(device):
                     w = c["warp_insertions"].double()
                     n = c["scanned"].double()
                     print(f"[counts] {label} ({q.shape[0]}, {r.shape[0]}, "
-                          f"k={k}), {int(v.sum())} valid, {order}, S·W={S * W}"
-                          f" (S={S}, W={W}), threshold "
+                          f"k={k}), {int(v.sum())} valid, {order}, "
+                          f"S·W={S * W} (S={S}, W={W}), threshold "
                           f"{'off' if prune is None else 'on'}: valid refs "
                           f"a warp scans mean {float(n.mean()):.1f}, max "
                           f"{int(n.max())}; warp insertion steps mean "
