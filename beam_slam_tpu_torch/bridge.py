@@ -1,9 +1,12 @@
-"""Carry windows, factor families and lidar state across from the JAX package.
+"""Carry windows, factor families, lidar state and smoother state across
+from the JAX package.
 
 The JAX package's ``WindowState``, factor families, ``FeatureCloud``,
-``RingGrid`` and ``RegistrationMap`` arrive as plain dicts of numpy arrays,
-field name → array (a window as a dict of such dicts, one per sub-state),
-and become the port's counterparts on a given device. The
+``RingGrid``, ``RegistrationMap`` and ``FixedLagSmoother`` host state arrive
+as plain dicts of numpy arrays (and, for the smoother, the python index maps
+and lists beside them), field name → value (a window as a dict of such
+dicts, one per sub-state), and become the port's counterparts on a given
+device. The
 caller does the flattening (``np.asarray`` of every field), so this module
 imports no JAX. Arrays may carry leading batch dims. Bool arrays stay bool,
 integer arrays (slots) become int64, float arrays keep their dtype.
@@ -11,6 +14,7 @@ integer arrays (slots) become int64, float arrays keep their dtype.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Mapping
 
@@ -22,6 +26,9 @@ from beam_slam_tpu_torch.core.window import (ImuStates, Landmarks,
                                              MotionStates, Poses, WindowState)
 from beam_slam_tpu_torch.lidar.cloud import FeatureCloud, RingGrid
 from beam_slam_tpu_torch.lidar.registration_map import RegistrationMap
+from beam_slam_tpu_torch.solver.smoother import (ARENA_FAMILIES,
+                                                 FixedLagSmoother,
+                                                 SmootherConfig)
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -96,3 +103,51 @@ def registration_map_from_numpy(fields: Mapping[str, object],
         dst[...] = src
     m._next = int(fields["next"])
     return m
+
+
+# The host state of a FixedLagSmoother that a copy carries: the state,
+# extrinsic, motion and landmark mirrors, the index maps and free lists,
+# the generations, the robustness counters and the pipeline clock.
+SMOOTHER_FIELDS = (
+    "q", "p", "v", "bg", "ba", "state_active", "state_held", "stamp_of_slot",
+    "slot_of_stamp", "_state_free", "state_gen",
+    "ext_q", "ext_p", "ext_active", "ext_held", "ext_slot_of_name",
+    "_ext_next", "mot_w", "mot_a", "mot_active",
+    "lm_pt", "lm_active", "lm_held", "lm_id_of_slot", "slot_of_lm_id",
+    "_lm_free", "lm_gen", "_lm_seq", "_lm_next_seq",
+    "counters", "_latest_stamp", "_last_marginalized_stamps",
+    "_last_released_lm_ids", "last_solved_stamp")
+# Per factor arena: its slots, activity, fields, insertion order and free
+# list.
+ARENA_FIELDS = ("slots", "active", "fields", "seq", "_free", "_next_seq",
+                "evictions")
+ARENAS = tuple(name for name, _ in ARENA_FAMILIES)
+
+
+def smoother_from_numpy(config: SmootherConfig,
+                        fields: Mapping[str, object],
+                        device) -> FixedLagSmoother:
+    """A port smoother of ``config`` on ``device`` holding a copy of a JAX
+    smoother's host state: ``fields`` maps every name of
+    :data:`SMOOTHER_FIELDS` to that attribute's value, and every arena name
+    of :data:`ARENAS` to a dict of its :data:`ARENA_FIELDS`. The next
+    ``run_once`` on either side starts from the same problem."""
+    sm = FixedLagSmoother(config, device=device)
+    for name in SMOOTHER_FIELDS:
+        src = fields[name]
+        dst = getattr(sm, name)
+        if isinstance(dst, np.ndarray) and np.shape(src) != dst.shape:
+            raise ValueError(f"FixedLagSmoother.{name}: shape "
+                             f"{np.shape(src)}, expected {dst.shape}")
+        setattr(sm, name, copy.deepcopy(src))
+    for arena_name in ARENAS:
+        arena, src = getattr(sm, arena_name), fields[arena_name]
+        for name in ARENA_FIELDS:
+            val = copy.deepcopy(src[name])
+            if name == "fields":
+                for k, a in val.items():
+                    if a.shape != arena.fields[k].shape:
+                        raise ValueError(f"{arena_name}.{k}: shape {a.shape},"
+                                         f" expected {arena.fields[k].shape}")
+            setattr(arena, name, val)
+    return sm

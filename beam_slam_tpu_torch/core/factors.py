@@ -13,7 +13,8 @@ one code path serves a single window (factor axis ``[F]``) and the
 shared-topology batch of :mod:`beam_slam_tpu_torch.solver.batched`
 (``[B, F]``, window tensors ``[B, K, ...]``, slots equal across the batch).
 
-Only the five families of the flagship LVIO window are ported so far.
+Every family of the reference but ``InverseDepthUnaryReprojectionFactors``
+(vision, a later slice) is ported.
 """
 
 from __future__ import annotations
@@ -456,6 +457,88 @@ class RelativePoseFactors(FactorBatch):
         return _mv(A, torch.cat([res_q, p_pred - dp], dim=-1))
 
 
+@dataclasses.dataclass
+class AbsolutePoseFactors(FactorBatch):
+    """6-dof prior on the pose part of an IMU state (fuse
+    AbsolutePose3DStampedConstraint; also the per-scan prior of
+    scan_registration_base and the window-start pose prior)."""
+
+    q0: torch.Tensor         # [F, 4]
+    p0: torch.Tensor         # [F, 3]
+    sqrt_info: torch.Tensor  # [F, 6, 6]
+
+    BLOCKS = (BLOCK_IMU,)
+    RESIDUAL_DIM = 6
+    USED_COLS = (0, 1, 2, 3, 4, 5)
+
+    @staticmethod
+    def zeros(F: int, dtype=torch.float32, device=None) -> "AbsolutePoseFactors":
+        return AbsolutePoseFactors(
+            **_slots_active(F, 1, device),
+            q0=lie.quat_identity((F,), dtype, device),
+            **_zeros_like_spec(F, dtype, device, p0=(3,), sqrt_info=(6, 6)))
+
+    def params(self):
+        return (self.q0, self.p0, self.sqrt_info)
+
+    def residual(self, block_states, params):
+        (q, p, *_), = block_states
+        q0, p0, A = params
+        res_q = lie.so3_log(lie.quat_mul(lie.quat_conj(q0), q))
+        return _mv(A, torch.cat([res_q, p - p0], dim=-1))
+
+
+MARGINAL_MAX_BLOCKS = 8
+
+
+@dataclasses.dataclass
+class MarginalPriorFactors(FactorBatch):
+    """Dense linear marginal factor over up to MARGINAL_MAX_BLOCKS IMU
+    states — the product of exact marginalization
+    (fuse_constraints::marginalizeVariables, fixed_lag_smoother.cpp:269-272).
+
+    Residual: r(x) = A · d(x) + b, where d stacks the 15-dof tangents of each
+    block at its stored linearization point:
+        d_i = [log(q̄ᵢ⁻¹ qᵢ), pᵢ − p̄ᵢ, vᵢ − v̄ᵢ, bgᵢ − b̄gᵢ, baᵢ − b̄aᵢ].
+    Unused trailing blocks are inert (zero A columns, slot at block 0)."""
+
+    q_lin: torch.Tensor   # [F, M, 4]
+    p_lin: torch.Tensor   # [F, M, 3]
+    v_lin: torch.Tensor   # [F, M, 3]
+    bg_lin: torch.Tensor  # [F, M, 3]
+    ba_lin: torch.Tensor  # [F, M, 3]
+    A: torch.Tensor       # [F, M*15, M*15]
+    b: torch.Tensor       # [F, M*15]
+
+    BLOCKS = (BLOCK_IMU,) * MARGINAL_MAX_BLOCKS
+    RESIDUAL_DIM = MARGINAL_MAX_BLOCKS * IMU_DOF
+
+    @staticmethod
+    def zeros(F: int, dtype=torch.float32,
+              device=None) -> "MarginalPriorFactors":
+        M = MARGINAL_MAX_BLOCKS
+        return MarginalPriorFactors(
+            **_slots_active(F, M, device),
+            q_lin=lie.quat_identity((F, M), dtype, device),
+            **_zeros_like_spec(F, dtype, device, p_lin=(M, 3), v_lin=(M, 3),
+                               bg_lin=(M, 3), ba_lin=(M, 3),
+                               A=(M * IMU_DOF, M * IMU_DOF), b=(M * IMU_DOF,)))
+
+    def params(self):
+        return (self.q_lin, self.p_lin, self.v_lin, self.bg_lin, self.ba_lin,
+                self.A, self.b)
+
+    def residual(self, block_states, params):
+        q_lin, p_lin, v_lin, bg_lin, ba_lin, A, b = params
+        ds = []
+        for m, (q, p, v, bg, ba) in enumerate(block_states):
+            dq = lie.so3_log(lie.quat_mul(lie.quat_conj(q_lin[..., m, :]), q))
+            ds.append(torch.cat([dq, p - p_lin[..., m, :], v - v_lin[..., m, :],
+                                 bg - bg_lin[..., m, :],
+                                 ba - ba_lin[..., m, :]], dim=-1))
+        return _mv(A, torch.cat(ds, dim=-1)) + b
+
+
 # ---------------------------------------------------------------------------
 # Visual factors
 # ---------------------------------------------------------------------------
@@ -639,6 +722,131 @@ class InverseDepthReprojectionFactors(FactorBatch):
         return r, J
 
 
+# ---------------------------------------------------------------------------
+# Motion-model factors
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ConstantVelocityFactors(FactorBatch):
+    """9-dof constant-velocity kinematic factor between consecutive states
+    (the reduced Unicycle3D motion model; bs_constraints/motion/
+    unicycle_3d_state_cost_functor.h:127):
+
+        r = A · [ log(q_i⁻¹ q_j),  p_j − (p_i + v_i·dt),  v_j − v_i ]"""
+
+    dt: torch.Tensor         # [F]
+    sqrt_info: torch.Tensor  # [F, 9, 9]
+
+    BLOCKS = (BLOCK_IMU, BLOCK_IMU)
+    RESIDUAL_DIM = 9
+    USED_COLS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 15, 16, 17, 18, 19, 20, 21, 22, 23)
+
+    @staticmethod
+    def zeros(F: int, dtype=torch.float32,
+              device=None) -> "ConstantVelocityFactors":
+        return ConstantVelocityFactors(
+            **_slots_active(F, 2, device),
+            **_zeros_like_spec(F, dtype, device, dt=(), sqrt_info=(9, 9)))
+
+    def params(self):
+        return (self.dt, self.sqrt_info)
+
+    def residual(self, block_states, params):
+        (q_i, p_i, v_i, *_), (q_j, p_j, v_j, *_) = block_states
+        dt, A = params
+        dt = dt[..., None]
+        r_q = lie.so3_log(lie.quat_mul(lie.quat_conj(q_i), q_j))
+        r_p = p_j - (p_i + dt * v_i)
+        r_v = v_j - v_i
+        return _mv(A, torch.cat([r_q, r_p, r_v], dim=-1))
+
+
+@dataclasses.dataclass
+class Unicycle3DFactors(FactorBatch):
+    """Full-state Unicycle3D kinematic factor (bs_constraints/motion/
+    unicycle_3d_state_cost_functor.h:70-141 + unicycle_3d_predict.h:49-147);
+    ω, a live in the window's MotionStates block, one slot per pose:
+
+        q_pred = q_i ⊗ Exp(ω_i·dt)
+        p_pred = p_i + v_i·dt + ½·R(q_i)·a_i·dt²
+        v_pred = v_i + R(q_i)·a_i·dt
+
+    15-dof whitened residual [rot, pos, vel, ω, a]:
+        r = A · [ Log(q_pred⁻¹ q_j), p_j − p_pred, v_j − v_pred,
+                  ω_j − ω_i, a_j − a_i ]"""
+
+    dt: torch.Tensor         # [F]
+    sqrt_info: torch.Tensor  # [F, 15, 15]
+
+    BLOCKS = (BLOCK_IMU, BLOCK_MOTION, BLOCK_IMU, BLOCK_MOTION)
+    RESIDUAL_DIM = 15
+    USED_COLS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 15, 16, 17, 18, 19, 20, 21, 22,
+                 23, 24, 25, 26, 27, 28, 29, 36, 37, 38, 39, 40, 41)
+
+    @staticmethod
+    def zeros(F: int, dtype=torch.float32,
+              device=None) -> "Unicycle3DFactors":
+        return Unicycle3DFactors(
+            **_slots_active(F, 4, device),
+            **_zeros_like_spec(F, dtype, device, dt=(), sqrt_info=(15, 15)))
+
+    def params(self):
+        return (self.dt, self.sqrt_info)
+
+    def residual(self, block_states, params):
+        ((q_i, p_i, v_i, *_), (w_i, a_i),
+         (q_j, p_j, v_j, *_), (w_j, a_j)) = block_states
+        dt, A = params
+        dt = dt[..., None]
+        a_world = lie.quat_rotate(q_i, a_i)
+        q_pred = lie.quat_mul(q_i, lie.so3_exp_quat(w_i * dt))
+        r_q = lie.so3_log(lie.quat_mul(lie.quat_conj(q_pred), q_j))
+        r_p = p_j - (p_i + v_i * dt + 0.5 * a_world * dt * dt)
+        r_v = v_j - (v_i + a_world * dt)
+        return _mv(A, torch.cat([r_q, r_p, r_v, w_j - w_i, a_j - a_i],
+                                dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# Gravity alignment
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GravityAlignmentFactors(FactorBatch):
+    """2-dof roll/pitch alignment factor (bs_constraints/global/
+    gravity_alignment_cost_functor.h:32-82): the xy part of the body-frame
+    gravity direction (measured by the accelerometer) rotated into the
+    world, which is [0, 0, -1] when aligned."""
+
+    g_body: torch.Tensor     # [F, 3] unit gravity direction in body frame
+    sqrt_info: torch.Tensor  # [F, 2, 2]
+
+    BLOCKS = (BLOCK_IMU,)
+    RESIDUAL_DIM = 2
+    USED_COLS = (0, 1, 2)
+
+    @staticmethod
+    def zeros(F: int, dtype=torch.float32,
+              device=None) -> "GravityAlignmentFactors":
+        g = torch.zeros(F, 3, dtype=dtype, device=device)
+        g[:, 2] = -1.0
+        return GravityAlignmentFactors(
+            **_slots_active(F, 1, device), g_body=g,
+            sqrt_info=torch.zeros(F, 2, 2, dtype=dtype, device=device))
+
+    def params(self):
+        return (self.g_body, self.sqrt_info)
+
+    def residual(self, block_states, params):
+        (q, *_), = block_states
+        g_body, A = params
+        return _mv(A, lie.quat_rotate(q, g_body)[..., 0:2])
+
+
 FAMILIES = {cls.__name__: cls for cls in (
     ImuRelativeFactors, ImuPriorFactors, RelativePoseFactors,
-    ReprojectionFactors, InverseDepthReprojectionFactors)}
+    AbsolutePoseFactors, MarginalPriorFactors, ConstantVelocityFactors,
+    Unicycle3DFactors, ReprojectionFactors, InverseDepthReprojectionFactors,
+    GravityAlignmentFactors)}

@@ -234,3 +234,9 @@ class WindowState(Struct):
             _repeat_mask(self.extrinsics.active, self.extrinsics.held, POSE_DOF),
             _repeat_mask(self.motion.active, self.motion.held, MOTION_DOF),
         ], dim=-1)
+
+
+def gather_imu(states: ImuStates, idx: torch.Tensor):
+    """Gather (q, p, v, bg, ba) rows at ``idx``; idx may be any shape."""
+    return (states.q[idx], states.p[idx], states.v[idx],
+            states.bg[idx], states.ba[idx])

@@ -3,9 +3,10 @@
 // Replaces the TPU kernel beam_slam_tpu/ops/pallas_cholesky.py ::
 // cholesky_solve_batched (body _chol_solve_kernel): x = H⁻¹ g for B damped,
 // Jacobi-equilibrated SPD systems H [B, N, N], g [B, N], f32. On the LM path
-// this is the reduced camera system of every iteration (N = 640 for the
-// flagship window after the caller's 128-padding), B = 1 for the smoother's
-// solve and 8–64 for batched refinement.
+// this is the reduced camera system of every iteration, after the caller's
+// 128-padding: N = 640 for the flagship window, N = 1024 for the fixed-lag
+// smoother at configs/lio.yaml's capacities (990 dof + the trash dof);
+// B = 1 for a single window's solve and 8–64 for batched refinement.
 //
 // What bounds it on this card: not bytes (1.6 MB per system) and not the
 // 87 MFLOP of a 640² factor, but the dependency chain. A blocked Cholesky is

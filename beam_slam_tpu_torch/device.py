@@ -74,3 +74,21 @@ def to_numpy(*tensors: torch.Tensor) -> List[np.ndarray]:
     """Tensors → numpy arrays with one wait for the device, not one per
     tensor."""
     return HostCopy(tensors).numpy()
+
+
+def to_device_many(arrays: Sequence[np.ndarray], device) -> List[torch.Tensor]:
+    """Host numpy arrays as tensors on ``device``, in as few copies as there
+    are dtypes: the arrays of one dtype are packed into one contiguous
+    buffer, copied once (:func:`to_device`), and handed back as views of
+    it. A problem of a hundred small arrays thus costs three transfers, not
+    a hundred. The tensors never alias the given arrays."""
+    arrays = [np.asarray(a) for a in arrays]
+    out: List[torch.Tensor] = [None] * len(arrays)  # type: ignore[list-item]
+    for dtype in dict.fromkeys(a.dtype for a in arrays):
+        idx = [i for i, a in enumerate(arrays) if a.dtype == dtype]
+        flat = np.concatenate([arrays[i].ravel() for i in idx])
+        buf = to_device(flat, device)
+        for i, part in zip(idx, torch.split(buf, [arrays[i].size
+                                                  for i in idx])):
+            out[i] = part.view(arrays[i].shape)
+    return out

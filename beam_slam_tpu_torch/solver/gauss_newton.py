@@ -15,6 +15,9 @@ complement elimination of landmarks (port of
   * The LM loop runs a fixed number of steps with tensor-valued
     accept/reject, damping and an inert ``done`` latch: no ``.item()`` and
     no host sync inside, so a later change can capture it in a CUDA graph.
+    With ``SolverOptions.early_exit`` it instead stops once every system's
+    ``done`` latch holds, at one host read of ``done`` per step; the steps
+    it skips would have been inert, so the result is the same.
 
 Every function below is batch-polymorphic: window leaves, equations and LM
 scalars may carry the same leading batch dims. The single-window solve has
@@ -38,14 +41,19 @@ _DIAG_EPS = 1e-12
 
 class SolverOptions(NamedTuple):
     """Solve configuration (the solver_options block of the reference
-    configs, beam_slam_launch/config/lvio.yaml:7-17). The loop always runs
-    ``max_iterations`` steps; steps after convergence are inert."""
+    configs, beam_slam_launch/config/lvio.yaml:7-17). The loop runs
+    ``min(max_iterations, scan_length)`` steps (``scan_length=None``: just
+    ``max_iterations``); steps after convergence are inert. ``early_exit``
+    stops at convergence instead (the Ceres behaviour: iterate until
+    ``function_tolerance``, never past the step cap)."""
 
     max_iterations: int = 10
     function_tolerance: float = 1e-6
     initial_lambda: float = 1e-4
     min_lambda: float = 1e-12
     max_lambda: float = 1e8
+    scan_length: Optional[int] = None
+    early_exit: bool = False
 
 
 class SolveDiagnostics(NamedTuple):
@@ -129,6 +137,11 @@ def assemble_normal_equations(window: WindowState, families: Sequence,
                          + lm_cols[:, None, :],
                          torch.einsum("...rd,...rc->...dc", J, J_lm))
     return H, g, H_ll, g_l, W, cost
+
+
+# The reference jits this entry point for host callers (exact
+# marginalization); eager torch needs no wrapper.
+assemble_normal_equations_jit = assemble_normal_equations
 
 
 def total_cost(window: WindowState, families: Sequence,
@@ -238,9 +251,55 @@ def solve(window: WindowState, families: Tuple,
           options: SolverOptions = SolverOptions()
           ) -> Tuple[WindowState, SolveDiagnostics]:
     """Run LM on the window. ``families``/``losses`` are parallel tuples."""
+    n_iter = min(options.max_iterations,
+                 options.scan_length or options.max_iterations)
     return lm_loop(
         window, lambda w: assemble_normal_equations(w, families, losses),
-        options.max_iterations, options)
+        n_iter, options)
+
+
+def marginal_pose_covariance(window: WindowState, families: Tuple,
+                             losses: Tuple[Optional[float], ...],
+                             slots: torch.Tensor) -> torch.Tensor:
+    """Marginal 6-dof pose covariance blocks [S, 6, 6] ([dθ, dp] tangent) of
+    the IMU slots ``slots`` [S], from the landmark-Schur-reduced normal
+    equations at the current estimate: Jacobi-equilibrated, held/inactive
+    dof pinned, Cholesky-factored once, only the requested columns solved
+    (bs_common/utils.h:79; vo_localization_validation.h:32-63). A plain
+    library Cholesky, as the reference uses outside any kernel."""
+    H, _, H_ll, _, W, _ = assemble_normal_equations(window, families, losses)
+    dtype, dev = H.dtype, H.device
+    Dp = H.shape[-1]
+    L = H_ll.shape[-3]
+    free = torch.cat([window.dense_free_mask(),
+                      torch.zeros(1, dtype=torch.bool, device=dev)]).to(dtype)
+    lm_free = (window.landmarks.active & ~window.landmarks.held).to(dtype)
+
+    Hm = H * (free[:, None] * free[None, :]) + torch.diag(1.0 - free)
+    W = W * free[:, None] * torch.repeat_interleave(
+        lm_free, LANDMARK_DOF)[None, :]
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    tr = torch.diagonal(H_ll, dim1=-2, dim2=-1).sum(-1)
+    Hll_d = H_ll + (1e-5 * tr + 1e-8)[:, None, None] * eye3
+    Hll_d = torch.where(lm_free[:, None, None] > 0, Hll_d, eye3)
+    Wr = W.reshape(Dp, L, 3)
+    Y = torch.einsum("dlk,lkm->dlm", Wr, inv3x3(Hll_d))
+    H_red = Hm - torch.einsum("dlm,elm->de", Y, Wr)
+
+    s = torch.rsqrt(torch.clamp(torch.diagonal(H_red), min=_DIAG_EPS))
+    Hs = H_red * (s[:, None] * s[None, :]) \
+        + 1e-9 * torch.eye(Dp, dtype=dtype, device=dev)
+    Lc = torch.linalg.cholesky(Hs)
+
+    cols = (slots[:, None] * win.IMU_DOF
+            + torch.arange(6, device=dev)[None, :]).reshape(-1)   # [S*6]
+    E = F.one_hot(cols, Dp).to(dtype).T * s[:, None]               # [Dp, S*6]
+    X = torch.cholesky_solve(E, Lc) * s[:, None]
+    S_req = slots.shape[0]
+    Xr = X[cols, :].reshape(S_req, 6, S_req, 6)
+    idx = torch.arange(S_req, device=dev)
+    cov = Xr[idx, :, idx, :]                                       # [S, 6, 6]
+    return 0.5 * (cov + cov.transpose(1, 2))
 
 
 def lm_loop(window: WindowState, assemble, n_iter: int,
@@ -288,6 +347,8 @@ def lm_loop(window: WindowState, assemble, n_iter: int,
                         torch.clamp(lam * 4.0, max=options.max_lambda)))
         cost = torch.where(accept, new_cost, cost)
         iters = iters + accept.to(torch.int32)
+        if options.early_exit and bool(done.all()):
+            break
 
     diag = SolveDiagnostics(initial_cost=init_cost, final_cost=cost,
                             iterations=iters, converged=done,

@@ -1,11 +1,12 @@
 """Analytic ground-truth trajectory simulator (port of
 :mod:`beam_slam_tpu.utils.sim`): a smooth SE(3) trajectory whose exact IMU
 measurements come from forward-mode autodiff (``torch.func.jvp``), as the
-reference takes them from ``jax.jacfwd``."""
+reference takes them from ``jax.jacfwd``, and a regularly sampled IMU stream
+over it (:func:`imu_measurements`)."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.func import jvp
@@ -79,3 +80,24 @@ class AnalyticTrajectory:
         a_body = lie.quat_rotate(lie.quat_conj(q), acc_w - g_world)
         return TrajectorySample(t=t, q=q, p=p, v=v, w_body=w_body,
                                 a_body=a_body)
+
+
+def imu_measurements(traj: AnalyticTrajectory, t0: float, t1: float,
+                     rate_hz: float, generator: Optional[torch.Generator] = None,
+                     sig_w: float = 0.0, sig_a: float = 0.0,
+                     device=None) -> TrajectorySample:
+    """Regularly-sampled IMU stream over [t0, t1] with optional white noise,
+    on ``device`` (the card unless asked otherwise). The noise is drawn on
+    the host from ``generator`` (a seeded ``torch.Generator``), so a run is
+    reproducible; without one the stream is exact."""
+    device = resolve(device)
+    n = int(round((t1 - t0) * rate_hz)) + 1
+    t = t0 + torch.arange(n, dtype=traj.dtype, device=traj.device) / rate_hz
+    s = TrajectorySample(*(x.to(device) for x in traj.sample(t)))
+    if generator is not None and (sig_w > 0 or sig_a > 0):
+        def noise(x, sig):
+            z = torch.randn(x.shape, generator=generator, dtype=x.dtype)
+            return x + sig * z.to(device)
+        s = s._replace(w_body=noise(s.w_body, sig_w),
+                       a_body=noise(s.a_body, sig_a))
+    return s

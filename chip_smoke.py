@@ -6,6 +6,9 @@
     python3 chip_smoke.py k2     # build, then K2's checks and times only, on
                                  # the LIO map built at ground-truth poses
     python3 chip_smoke.py k3     # the same for K3
+    python3 chip_smoke.py smoother
+                                 # build K1 and K2, then only the LIO+IMU
+                                 # session of the fixed-lag smoother
     python3 chip_smoke.py knn-counts [cpu|cuda]
                                  # K2's schedule (its mirror) at the LIO
                                  # shapes: the insertions each warp runs
@@ -15,8 +18,8 @@ nvcc process each, all started together: K1 (batched Cholesky factor+solve,
 one thread-block cluster per system, csrc/cholesky.cu), K2 (exact kNN top-k,
 csrc/knn.cu) and K3 (fixed-radius neighbourhood moments, csrc/moments.cu).
 K1 is held against its plain version over shapes from 1×1 to 64 systems of
-640², every cluster size, a NaN-poisoned upper triangle, bad pivots and a
-bit-equal repeat, and timed. Then it drives the port's paths and holds every
+640² and one of 1024² (the smoother's), every cluster size, a NaN-poisoned
+upper triangle, bad pivots and a bit-equal repeat, and timed. Then it drives the port's paths and holds every
 kernel against its plain PyTorch version on the card:
 
   * the flagship LVIO solve — one Levenberg–Marquardt bundle-adjustment
@@ -31,7 +34,15 @@ kernel against its plain PyTorch version on the card:
     matchers/loam_vlp16.json: a 10-scan map deduped on a 0.1 m voxel grid,
     8 GN steps with adaptive refits), checked against ground truth and
     against the CPU plain path (K2); the pipelined device-map strategy on
-    the same scans; and one radius-mode registration (K3).
+    the same scans; and one radius-mode registration (K3);
+  * an LIO+IMU session of the fixed-lag smoother at configs/lio.yaml's
+    capacities (64 states, lag 4 s, LM up to 40 steps with early exit, the
+    sync tick): the scan seen along an analytic trajectory, registered every
+    0.25 s keyframe from the IMU's predicted pose (K2), with the
+    preintegrated IMU factor of a 200 Hz stream and a gravity factor; every
+    LM step solves the 1024² reduced system with K1. Checked against
+    ground truth, the window bound, marginalization, costs, K1 on that
+    system and one tick against the CPU plain path.
 
 Phases print one line each; any failure raises and exits non-zero. The
 line before the last two is the kernels' JSON record, then the card's name
@@ -90,6 +101,39 @@ MOM_DIFF_FRAC, MOM_EDGE_RTOL = 1e-3, 1e-6
 # Published H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and
 # fp32 FLOP/s outside the tensor cores.
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
+
+
+# The LIO+IMU session (phase 11) at configs/lio.yaml's capacities.
+# pipeline/config.py is not ported yet, so its smoother configuration is
+# written out here; tests/test_torch_smoother.py holds it field by field
+# against LocalMapperConfig.from_yaml("configs/lio.yaml").smoother_config()
+# of the JAX package. One reduction: the tick is the sync one
+# (async_solve=False), the async tick comes with the pipeline.
+LIO_YAML = "lio.yaml"
+# GravityAlignment as LocalMapper wires it (pipeline/local_mapper.py: the
+# config's gravity_info_weight, 10 from configs/lio.yaml's information
+# weights tier; a 201-sample window; a 0.05 s gate)
+LIO_GRAVITY = dict(info_weight=10.0, smooth_window=201, max_imu_dt=0.05)
+SESSION_KF_DT, SESSION_S, IMU_RATE = 0.25, 6.5, 200.0
+SESSION_SEED = 11                   # torch.Generator of the IMU noise
+SESSION_IMU_SIGMA = (2e-3, 2e-2)    # gyro rad/s, accel m/s² per sample
+
+
+def lio_smoother_config():
+    """The port's SmootherConfig for configs/lio.yaml (LIO mode): lag 4 s,
+    period 0.04 s, pseudo-marginalization, 64 states, the other arenas at
+    their defaults, vision arenas at 1, Cauchy 1.0 on relative poses, LM
+    capped at 40 steps with early exit at function tolerance 1e-6."""
+    from beam_slam_tpu_torch.solver import gauss_newton as gn
+    from beam_slam_tpu_torch.solver.smoother import SmootherConfig
+    return SmootherConfig(
+        lag_duration=4.0, optimization_period=0.04,
+        pseudo_marginalization=True, async_solve=False,
+        async_max_skipped_ticks=0, marginalization_prior_cov=1e-5,
+        max_states=64, max_landmarks=1, max_reprojection_factors=1,
+        max_idp_factors=1, cauchy_loss_rel_pose=1.0, max_solver_time_s=None,
+        solver=gn.SolverOptions(max_iterations=40, function_tolerance=1e-6,
+                                early_exit=True))
 
 
 def _spd(gen, B, N, cond=1e3):
@@ -401,10 +445,10 @@ def cholesky_checks(card=""):
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
     for B, N in ((1, 640), (8, 640), (3, 128), (2, 200), (1, 1), (2, 7),
-                 (5, 33), (64, 640)):
+                 (5, 33), (64, 640), (1, 1024)):
         max_err = max(max_err, _chol_compare(chol, *_spd(gen, B, N), ""))
     for C in sizes:
-        for B, N in ((2, 200), (1, 640)):
+        for B, N in ((2, 200), (1, 640), (1, 1024)):
             max_err = max(max_err, _chol_compare(
                 chol, *_spd(gen, B, N), f" C={C}", cluster=C))
     # more clusters than the card holds at once: the rest queue
@@ -467,9 +511,20 @@ def cholesky_checks(card=""):
               f"{chosen[B]}, plain {times[B][1]:.3f} ms"
               + (f"; kernel ms by cluster size {per_c}" if per_c else "")
               + f" (CUDA events, {card})", flush=True)
+    # the smoother's system: 990 dof + the trash dof, padded to 1024
+    H, g = _spd(gen, 1, 1024)
+    times[(1, 1024)] = _paired_ms(lambda: kernel(H, g), lambda: plain(H, g))
+    per_c = {C: round(_event_ms(lambda: kernel(H, g, cluster=C), 20), 4)
+             for C in sizes}
+    bound = _chol_bound(1, 1024)
+    print(f"[3] K1 B=1 N=1024: kernel {times[(1, 1024)][0]:.3f} ms at C="
+          f"{chosen[1]}, plain (cholesky_ex + cholesky_solve) "
+          f"{times[(1, 1024)][1]:.3f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]}); kernel ms by cluster size {per_c} (CUDA events, "
+          f"{card})", flush=True)
     # what a panel step costs at B=1: the time against N (N/32 steps)
     by_n = {}
-    for N in (32, 64, 128, 256, 384, 512, 640):
+    for N in (32, 64, 128, 256, 384, 512, 640, 1024):
         H, g = _spd(gen, 1, N)
         by_n[N] = round(_event_ms(lambda: kernel(H, g), 20), 4)
     print(f"[3] K1 B=1 at C={chosen[1]}, kernel ms by N: {by_n} (CUDA events, "
@@ -999,6 +1054,275 @@ def run_radius(lio):
     return launches
 
 
+def _session_trajectory(device):
+    """Ground truth of the LIO+IMU session: phase 6's kind of path, a
+    keyframe every 0.25 s ~0.05–0.19 m and ~1° apart, through the vendored
+    scan's environment."""
+    from beam_slam_tpu_torch.utils import sim
+    return sim.AnalyticTrajectory(
+        amp_p=(0.3, 0.25, 0.05), freq_p=(0.9, 0.7, 1.1),
+        v_drift=(0.45, 0.0, 0.0), amp_r=(0.03, 0.03, 0.15),
+        freq_r=(0.8, 1.2, 0.6), device=device)
+
+
+def _busy_ms(fn):
+    """(device ms, device ops) of one call of ``fn`` under the profiler:
+    kernels and copies on the card's clock (one stream, no overlap); None
+    when the profiler lost the window's events (it now and then does)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not any("chol_solve" in e.name for e in on_dev):  # K1's kernel
+        return None
+    return sum(e.time_range.elapsed_us() for e in on_dev) / 1e3, len(on_dev)
+
+
+def run_session(card="", device="cuda", n_keyframes=None):
+    """The LIO+IMU session on the card at configs/lio.yaml's capacities:
+    the fixed-lag smoother (sync tick) fed, every 0.25 s keyframe, with the
+    scan registered scan-to-map from the IMU's predicted pose (K2), the
+    preintegrated IMU factor and the gravity factor in one transaction;
+    every LM step of every tick solves the 1024² reduced system with K1.
+    Returns the launch counts and K1's times on the session's system.
+    ``device="cpu"`` (and fewer ``n_keyframes``) rehearses the session's
+    logic off the card: no profiler, no K1 comparison or times."""
+    from beam_slam_tpu_torch import device as tdev
+    from beam_slam_tpu_torch.core import lie
+    from beam_slam_tpu_torch.lidar import features as feat
+    from beam_slam_tpu_torch.lidar import scan_registration as tsr
+    from beam_slam_tpu_torch.models.gravity_alignment import (
+        GravityAlignment, GravityAlignmentParams)
+    from beam_slam_tpu_torch.models.inertial_odometry import (
+        ImuParams, InertialOdometry)
+    from beam_slam_tpu_torch.ops import cholesky as chol
+    from beam_slam_tpu_torch.ops import knn
+    from beam_slam_tpu_torch.solver import gauss_newton as gn
+    from beam_slam_tpu_torch.solver.smoother import (FixedLagSmoother,
+                                                     Transaction)
+    from beam_slam_tpu_torch.utils import sim
+
+    cuda = device == "cuda"
+    dev = None if cuda else device   # entry points: None is the card
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg = lio_smoother_config()
+    sm = FixedLagSmoother(cfg, device=dev)
+    sm.register_extrinsic(tsr.LIDAR_SENSOR, np.array([1, 0, 0, 0],
+                                                     np.float32),
+                          np.zeros(3, np.float32))
+    io = InertialOdometry(sm, ImuParams(), device=dev)
+    grav = GravityAlignment(sm, GravityAlignmentParams(**LIO_GRAVITY))
+    strat, feat_cfg = tsr.create_scan_registration(
+        *LIO_JSON, config_root=str(ROOT / "configs"), device=dev)
+    traj = _session_trajectory(device)
+    imu = sim.imu_measurements(
+        traj, 0.0, SESSION_S, IMU_RATE,
+        generator=torch.Generator().manual_seed(SESSION_SEED),
+        sig_w=SESSION_IMU_SIGMA[0], sig_a=SESSION_IMU_SIGMA[1], device=dev)
+    imu_t, imu_w, imu_a = tdev.to_numpy(imu.t, imu.w_body, imu.a_body)
+    imu_t = imu_t.astype(np.float64)
+    stamps = [round(SESSION_KF_DT * k, 6)
+              for k in range(int(round(SESSION_S / SESSION_KF_DT)) + 1)]
+    stamps = stamps[:n_keyframes]
+    gt = traj.sample(torch.tensor(stamps, dtype=torch.float32,
+                                  device=device))
+    gt_q, gt_p, gt_v = tdev.to_numpy(gt.q, gt.p, gt.v)
+    cloud = _load_scan()
+    max_window = int(np.ceil(cfg.lag_duration / SESSION_KF_DT)) + 2
+
+    host_waits = [0]
+    numpy_fn = tdev.HostCopy.numpy
+
+    def counted_numpy(self):
+        host_waits[0] += self._event is not None
+        return numpy_fn(self)
+
+    def tick():
+        sync()
+        host_waits[0] = 0
+        tdev.HostCopy.numpy = counted_numpy
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if cuda:
+                torch.cuda.set_sync_debug_mode(1)
+            try:
+                diag = sm.run_once()
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode(0)
+                tdev.HostCopy.numpy = numpy_fn
+        sync()
+        wall = 1e3 * (time.perf_counter() - t0)
+        return diag, wall, host_waits[0] + sum(
+            "synchroniz" in str(w.message) for w in caught)
+
+    n_prof = 3 if cuda else 0   # the last ticks run under the profiler
+    chol.cholesky_solve_batched.launches = 0
+    knn.knn_topk.launches = 0
+    fed, ticks, prof = 0, [], []
+    for k, t_k in enumerate(stamps):
+        while fed < len(imu_t) and imu_t[fed] <= t_k + 1e-9:
+            io.process_imu(float(imu_t[fed]), imu_w[fed], imu_a[fed])
+            grav.process_imu(float(imu_t[fed]), imu_a[fed])
+            fed += 1
+        grid = _observed_grid(cloud, gt_q[k], gt_p[k], dev)
+        fc = feat.extract_features(grid, feat_cfg)
+        txn = Transaction(stamp=t_k)
+        if k == 0:
+            txn.add_imu_state(t_k, gt_q[0], gt_p[0], gt_v[0])
+            q_s, p_s = gt_q[0], gt_p[0]
+        else:
+            q_s, p_s, _ = io.model.get_pose(t_k)   # the IMU's prediction
+            if not io.model.register_factor(t_k, txn):
+                raise RuntimeError(f"session: no IMU factor at {t_k}")
+        if not strat.register_new_scan(t_k, fc, q_s, p_s, txn):
+            raise RuntimeError(f"session: scan at {t_k} not registered")
+        grav.process_stamp(t_k, txn)
+        sm.send_transaction(txn)
+        k1_before = chol.cholesky_solve_batched.launches
+        if k >= len(stamps) - n_prof:
+            seen = _busy_ms(lambda: ticks.append(tick()))
+            prof.append(seen and seen + (ticks[-1][1],))
+        else:
+            ticks.append(tick())
+        diag = ticks[-1][0]
+        ticks[-1] += (chol.cholesky_solve_batched.launches - k1_before,)
+        if k == 0:
+            io.initialize(t_k, gt_q[0], gt_p[0], gt_v[0])
+        c0, c1 = float(diag.initial_cost), float(diag.final_cost)
+        if not (np.isfinite(c1) and c1 <= c0):
+            raise RuntimeError(f"session tick {k}: cost {c0} -> {c1}")
+        if len(sm.current_stamps()) > max_window:
+            raise RuntimeError(f"session tick {k}: {len(sm.current_stamps())}"
+                               f" states in the window (bound {max_window})")
+    launches = dict(k1=chol.cholesky_solve_batched.launches,
+                    k2=knn.knn_topk.launches)
+
+    # checks on the end state
+    worst = (0.0, 0.0)
+    for t in sm.current_stamps():
+        k = stamps.index(t)
+        st = sm.get_state(t)
+        e_p = float(np.linalg.norm(st["p"] - gt_p[k]))
+        e_r = _so3_err(st["q"], gt_q[k])
+        worst = (max(worst[0], e_p), max(worst[1], e_r))
+    if not (worst[0] < GT_TRANS and worst[1] < GT_ROT):
+        raise RuntimeError(f"session: window {worst[0]:.4f} m / "
+                           f"{worst[1]:.4f} rad off ground truth")
+    c = sm.counters
+    if not sm._last_marginalized_stamps or c["dropped_transactions"] or \
+            c["forced_state_marginalizations"]:
+        raise RuntimeError(f"session: marginalized "
+                           f"{len(sm._last_marginalized_stamps)}, counters {c}")
+    if cuda and (launches["k1"] < len(stamps)
+                 or launches["k2"] < 2 * (len(stamps) - 1)):
+        raise RuntimeError(f"session: launches {launches}")
+    steady = ticks[1:len(ticks) - n_prof]   # not the first, not profiled
+    walls = [t[1] for t in steady]
+    print(f"[10] LIO+IMU session (sync tick: the async tick comes with the "
+          f"pipeline), configs/lio.yaml capacities ({cfg.max_states} states, "
+          f"lag {cfg.lag_duration} s, LM <= {cfg.solver.max_iterations} "
+          f"steps with early exit), {len(stamps)} keyframes every "
+          f"{SESSION_KF_DT} s over {SESSION_S} s, IMU at {IMU_RATE:.0f} Hz: "
+          f"window {len(sm.current_stamps())} states (bound {max_window}), "
+          f"{len(sm._last_marginalized_stamps)} states marginalized, worst "
+          f"{worst[0]:.4f} m / {worst[1]:.4f} rad off ground truth (bounds "
+          f"{GT_TRANS} / {GT_ROT}); counters {c}; K1 launches "
+          f"{launches['k1']}, K2 launches {launches['k2']}", flush=True)
+    print(f"[10] session ticks ({card}): wall median "
+          f"{statistics.median(walls):.1f} ms (min {min(walls):.1f}, max "
+          f"{max(walls):.1f}) over {len(steady)}; solve "
+          f"{1e3 * sm.total_solve_time / sm.solve_count:.1f} ms a tick "
+          f"(mean of {sm.solve_count}); accepted LM steps a tick "
+          f"{statistics.mean(int(t[0].iterations) for t in steady):.2f}; K1 "
+          f"launches (LM steps run) a tick "
+          f"{statistics.mean(t[3] for t in steady):.2f}, "
+          f"{sum(t[3] >= cfg.solver.max_iterations for t in steady)} ticks "
+          f"at the {cfg.solver.max_iterations}-step cap; host syncs a tick "
+          f"{statistics.mean(t[2] for t in steady):.1f} (min "
+          f"{min(t[2] for t in steady)}, max {max(t[2] for t in steady)})",
+          flush=True)
+    if not cuda:
+        return dict(launches=launches)
+    if all(prof):
+        busy = sum(p[0] for p in prof)
+        wall3 = sum(p[2] for p in prof)
+        print(f"[10] three ticks under the profiler: "
+              f"{sum(p[1] for p in prof)} device ops, device time "
+              f"{busy:.2f} ms of {wall3:.1f} ms wall, so the card is idle "
+              f"{100 * (1 - busy / wall3):.1f}% ({card})", flush=True)
+    else:
+        print(f"[10] three ticks under the profiler: the profiler lost the "
+              f"events of {sum(not p for p in prof)} of them; device time "
+              f"not measured", flush=True)
+
+    # K1 on the session's own reduced system, against its plain version
+    window, fams, losses = sm._build_device_problem()
+    H, g, H_ll, g_l, W, _ = gn.assemble_normal_equations(window, fams,
+                                                         losses)
+    free = torch.cat([window.dense_free_mask(),
+                      torch.zeros(1, dtype=torch.bool, device="cuda")])
+    lm_free = window.landmarks.active & ~window.landmarks.held
+    Hp, gp, _ = gn._damped_reduced_system(
+        H, g, free, torch.tensor(cfg.solver.initial_lambda, device="cuda"),
+        H_ll, g_l, W, lm_free)
+    Hp, gp = Hp[None].contiguous(), gp[None].contiguous()
+    x, _ = chol.cholesky_solve_batched(Hp, gp)
+    x_ref, _ = chol.cholesky_solve_batched_reference(Hp, gp)
+    torch.cuda.synchronize()
+    sys_err = float((x - x_ref).abs().max())
+    if Hp.shape[1:] != (1024, 1024) or not sys_err <= X_TOL * float(
+            x_ref.abs().max()):
+        raise RuntimeError(f"K1 on the session's reduced system "
+                           f"{tuple(Hp.shape)}: err {sys_err}")
+    k1_ms, plain_ms = _paired_ms(
+        lambda: chol.cholesky_solve_batched(Hp, gp),
+        lambda: chol.cholesky_solve_batched_reference(Hp, gp))
+    bound = _chol_bound(1, 1024)
+    print(f"[10] K1 on the session's reduced system {tuple(Hp.shape[1:])}: "
+          f"max|x-x_ref|={sys_err:.3e} (bound "
+          f"{X_TOL * float(x_ref.abs().max()):.3e}); kernel {k1_ms:.4f} ms, "
+          f"plain (cholesky_ex + cholesky_solve) {plain_ms:.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}) (CUDA events, {card})", flush=True)
+
+    # the same tick's problem on the card and on the CPU plain path
+    opts = cfg.solver
+    out, diag = gn.solve(window, fams, losses, opts)
+    out_cpu, diag_cpu = gn.solve(window.to("cpu"),
+                                 tuple(f.to("cpu") for f in fams), losses,
+                                 opts)
+    c1, c1_cpu = float(diag.final_cost), float(diag_cpu.final_cost)
+    gap = abs(c1 - c1_cpu) / max(c1_cpu, 1e-30)
+    dp = float((out.imu.p.cpu() - out_cpu.imu.p).abs().max())
+    print(f"[10] one tick's problem, card vs CPU plain path: final cost "
+          f"{c1:.6g} / {c1_cpu:.6g} (rel gap {gap:.2e}, bound {COST_RTOL}), "
+          f"max|dp| {dp:.2e} m (bound {DP_TOL}), accepted steps "
+          f"{int(diag.iterations)} / {int(diag_cpu.iterations)}", flush=True)
+    if not (gap <= COST_RTOL and dp <= DP_TOL):
+        raise RuntimeError("session tick on the card disagrees with the CPU "
+                           "plain path")
+    # the same problem with early exit off and on
+    for early in (False, True):
+        o = opts._replace(early_exit=early)
+        n0 = chol.cholesky_solve_batched.launches
+        ms = _wall_ms(lambda: gn.solve(window, fams, losses, o), 1)
+        steps = chol.cholesky_solve_batched.launches - n0
+        _, d = gn.solve(window, fams, losses, o)
+        print(f"[10] one tick's problem, early_exit={early}: {ms:.1f} ms, "
+              f"{steps} LM steps, final cost {float(d.final_cost):.6g}, "
+              f"accepted {int(d.iterations)} ({card})", flush=True)
+    return dict(launches=launches, k1_ms=k1_ms, plain_ms=plain_ms,
+                bound=bound, err=sys_err)
+
+
 def main(only: str = "") -> int:
     # ---- 1. require CUDA
     if not torch.cuda.is_available():
@@ -1022,8 +1346,9 @@ def main(only: str = "") -> int:
     t0 = time.perf_counter()
     libs = {"bst_cholesky": chol, "bst_knn": knn, "bst_moments": moments}
     if only:
-        libs = {name: mod for name, mod in libs.items()
-                if mod is dict(k1=chol, k2=knn, k3=moments)[only]}
+        wanted = dict(k1=(chol,), k2=(knn,), k3=(moments,),
+                      smoother=(chol, knn))[only]
+        libs = {name: mod for name, mod in libs.items() if mod in wanted}
     built = nvcc_build.build_many([(name, mod.SOURCES)
                                    for name, mod in libs.items()])
     for mod in libs.values():
@@ -1036,6 +1361,10 @@ def main(only: str = "") -> int:
     print(f"[2] all kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
+    if only == "smoother":  # the LIO+IMU session alone
+        run_session(card)
+        print(card)
+        return 0
     if only in ("k2", "k3"):  # alone, on a map built at ground-truth poses
         (knn_checks if only == "k2" else moments_checks)(
             lio_knn_inputs("cuda"), card)
@@ -1144,7 +1473,10 @@ def main(only: str = "") -> int:
     run_pipelined(lio, card=card)
     k3_launches = run_radius(lio)
 
-    # ---- 10. records (K2 at the surface shape, the larger of the two)
+    # ---- 10. the LIO+IMU session of the fixed-lag smoother (K1, K2)
+    sess = run_session(card)
+
+    # ---- 11. records (K2 at the surface shape, the larger of the two)
     kb1, kb1_by = _chol_bound(1, 640)
     k2s = kc["k2"]["times"]["surfaces"]
     k3s = kc["k3"]["times"]["surfaces"]
@@ -1152,7 +1484,8 @@ def main(only: str = "") -> int:
         "name": "cholesky_solve_batched", "route": "cuda",
         "source": "beam_slam_tpu_torch/csrc/cholesky.cu",
         "replaces": "beam_slam_tpu/ops/pallas_cholesky.py:226",
-        "launches": launches_flagship + launches_batched,
+        "launches": (launches_flagship + launches_batched
+                     + sess["launches"]["k1"]),
         "max_abs_err": max_err, "ms": times[1][0], "plain_ms": times[1][1],
         "bound_ms": kb1, "bound_by": kb1_by,
         # the plain version is the library pair cholesky_ex + cholesky_solve
@@ -1161,7 +1494,8 @@ def main(only: str = "") -> int:
         "name": "knn_topk", "route": "cuda",
         "source": "beam_slam_tpu_torch/csrc/knn.cu",
         "replaces": "beam_slam_tpu/ops/pallas_knn.py:110",
-        "launches": lio["launches"], "max_abs_err": kc["k2"]["err"],
+        "launches": lio["launches"] + sess["launches"]["k2"],
+        "max_abs_err": kc["k2"]["err"],
         "ms": k2s["ms"], "plain_ms": k2s["plain"],
         "bound_ms": k2s["bound"][0], "bound_by": k2s["bound"][1],
         "library_ms": k2s["lib"],
@@ -1185,7 +1519,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["knn-counts"]:
         knn_counts((sys.argv[2:] or ["cuda"])[0])
         sys.exit(0)
-    if sys.argv[1:] not in ([], ["k1"], ["k2"], ["k3"]):
-        sys.exit(f"usage: {sys.argv[0]} [k1 | k2 | k3 | knn-counts "
-                 f"[cpu|cuda]]")
+    if sys.argv[1:] not in ([], ["k1"], ["k2"], ["k3"], ["smoother"]):
+        sys.exit(f"usage: {sys.argv[0]} [k1 | k2 | k3 | smoother | "
+                 f"knn-counts [cpu|cuda]]")
     sys.exit(main(only=(sys.argv[1:] or [""])[0]))

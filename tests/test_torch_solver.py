@@ -187,3 +187,65 @@ def test_assert_shared_topology_rejects_mismatch(problem):
     fams[0].slots[1, 0, 0] += 1  # window 1 differs
     with pytest.raises(ValueError, match="slots differ"):
         tbs.assert_shared_topology(fams)
+
+
+def test_marginal_pose_covariance_matches_reference(problem):
+    """Marginal 6×6 pose covariances of three slots from the Schur-reduced,
+    equilibrated system: a float32 Cholesky on both sides (XLA's and
+    LAPACK's), so 1e-3 of the largest entry."""
+    wj, fj, wt, ft = problem
+    slots = np.array([0, 2, 5])
+    ref = np.asarray(jgn.marginal_pose_covariance(
+        wj, fj, LOSSES, jnp.asarray(slots, jnp.int32)))
+    out = tgn.marginal_pose_covariance(wt, ft, LOSSES, torch.tensor(slots))
+    assert out.shape == (3, 6, 6)
+    npt.assert_allclose(out.numpy(), ref, atol=1e-3 * np.abs(ref).max(),
+                        rtol=0)
+
+
+def _counted(ft):
+    calls = [0]
+
+    def assemble(w):
+        calls[0] += 1
+        return tgn.assemble_normal_equations(w, ft, LOSSES)
+    return assemble, calls
+
+
+def test_early_exit_matches_fixed_length_loop(problem):
+    """Steps after the convergence latch are inert, so stopping there gives
+    the fixed-length loop's window and diagnostics bit for bit, in fewer
+    steps (one assembly per step, plus the first)."""
+    _, _, wt, ft = problem
+    opts = tgn.SolverOptions(max_iterations=25, function_tolerance=1e-3)
+    runs = {}
+    for early in (False, True):
+        assemble, calls = _counted(ft)
+        runs[early] = tgn.lm_loop(wt, assemble, opts.max_iterations,
+                                  opts._replace(early_exit=early)) + (calls,)
+    (w_f, d_f, c_f), (w_e, d_e, c_e) = runs[False], runs[True]
+    assert bool(d_e.converged)
+    assert c_f[0] == 26 and c_e[0] < c_f[0]
+    for a, b in zip(d_e, d_f):
+        assert torch.equal(a, b)
+    for k in PARTS:
+        for f in dataclasses.fields(getattr(w_f, k)):
+            assert torch.equal(getattr(getattr(w_e, k), f.name),
+                               getattr(getattr(w_f, k), f.name)), (k, f.name)
+
+
+def test_scan_length_caps_the_steps(problem, monkeypatch):
+    """solve runs min(max_iterations, scan_length) steps: with
+    scan_length=3 it is the 3-step solve."""
+    _, _, wt, ft = problem
+    seen = []
+    lm_loop = tgn.lm_loop
+    monkeypatch.setattr(tgn, "lm_loop", lambda w, a, n, o: seen.append(n)
+                        or lm_loop(w, a, n, o))
+    w_c, d_c = tgn.solve(wt, ft, LOSSES, tgn.SolverOptions(
+        max_iterations=10, scan_length=3))
+    w_3, d_3 = tgn.solve(wt, ft, LOSSES, tgn.SolverOptions(max_iterations=3))
+    assert seen == [3, 3]
+    for a, b in zip(d_c, d_3):
+        assert torch.equal(a, b)
+    assert torch.equal(w_c.imu.p, w_3.imu.p)
