@@ -2,12 +2,11 @@
 from the JAX package.
 
 The JAX package's ``WindowState``, factor families, ``FeatureCloud``,
-``RingGrid``, ``RegistrationMap`` and ``FixedLagSmoother`` host state arrive
-as plain dicts of numpy arrays (and, for the smoother, the python index maps
-and lists beside them), field name → value (a window as a dict of such
-dicts, one per sub-state), and become the port's counterparts on a given
-device. The
-caller does the flattening (``np.asarray`` of every field), so this module
+``RingGrid``, ``RegistrationMap``, session events and ``FixedLagSmoother``
+host state arrive as plain dicts of numpy arrays (and, for the smoother,
+the python index maps and lists beside them), field name → value (a window
+as a dict of such dicts, one per sub-state), and become the port's
+counterparts on a given device. The caller does the flattening (``np.asarray`` of every field), so this module
 imports no JAX. Arrays may carry leading batch dims. Bool arrays stay bool,
 integer arrays (slots) become int64, float arrays keep their dtype.
 """
@@ -78,6 +77,26 @@ def ring_grid_from_numpy(fields: Mapping[str, np.ndarray],
                          device) -> RingGrid:
     """{"xyz", "time", "valid"} → the port's RingGrid on ``device``."""
     return _build(RingGrid, fields, device)
+
+
+def session_events_from_numpy(events, device) -> list:
+    """The JAX package's session events (``generate_session_events``: a
+    time-sorted list of ("imu", t, w, a), ("scan", t, grid) and ("tick", t)
+    tuples), each scan's grid given as a dict of numpy arrays (see
+    :func:`ring_grid_from_numpy`) → the port's events, the grids on
+    ``device``. Camera and pose events belong to the vision slice and are
+    refused."""
+    out = []
+    for ev in events:
+        if ev[0] == "scan":
+            out.append(("scan", ev[1], ring_grid_from_numpy(ev[2], device)))
+        elif ev[0] == "imu":
+            out.append(("imu", ev[1], np.asarray(ev[2]), np.asarray(ev[3])))
+        elif ev[0] == "tick":
+            out.append(ev)
+        else:
+            raise KeyError(f"session event {ev[0]!r} is not ported")
+    return out
 
 
 def registration_map_from_numpy(fields: Mapping[str, object],

@@ -25,6 +25,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from beam_slam_tpu_torch.core import lie
+from beam_slam_tpu_torch.core.autodiff import FORWARD_AD
 from beam_slam_tpu_torch.core.window import (IMU_DOF, LANDMARK_DOF, MOTION_DOF,
                                              POSE_DOF, Struct, WindowState)
 
@@ -230,8 +231,9 @@ class FactorBatch(Struct):
         g_flat = tuple(tuple(flat(t) for t in g) for g in gathered)
         p_flat = tuple(flat(t) for t in params)
         zeros = p_flat[0].new_zeros((p_flat[0].shape[0], Du))
-        J, r = torch.func.vmap(torch.func.jacfwd(res_one, has_aux=True))(
-            zeros, g_flat, p_flat)
+        with FORWARD_AD:   # one forward-AD user at a time (core/autodiff)
+            J, r = torch.func.vmap(torch.func.jacfwd(res_one, has_aux=True))(
+                zeros, g_flat, p_flat)
         return (r.reshape(lead + r.shape[1:]), J.reshape(lead + J.shape[1:]))
 
     def linearize(self, window: WindowState):

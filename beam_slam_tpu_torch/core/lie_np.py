@@ -73,6 +73,42 @@ def quat_to_matrix(q) -> np.ndarray:
     ], axis=-2)
 
 
+def matrix_to_quat(R) -> np.ndarray:
+    """Rotation matrix -> unit quaternion [w,x,y,z], (..., 3, 3) -> (..., 4):
+    the branch-free Shepperd of the reference (the numerically best of the
+    four candidates), sign canonicalized to w >= 0."""
+    R = np.asarray(R)
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw2 = 1.0 + tr
+    qx2 = 1.0 + m00 - m11 - m22
+    qy2 = 1.0 - m00 + m11 - m22
+    qz2 = 1.0 - m00 - m11 + m22
+
+    def _safe_sqrt(x):
+        return np.sqrt(np.maximum(x, _EPS * _EPS))
+
+    sw = _safe_sqrt(qw2)
+    qa = np.stack([sw * sw, m21 - m12, m02 - m20, m10 - m01],
+                  axis=-1) / (2.0 * sw[..., None])
+    sx = _safe_sqrt(qx2)
+    qb = np.stack([m21 - m12, sx * sx, m01 + m10, m02 + m20],
+                  axis=-1) / (2.0 * sx[..., None])
+    sy = _safe_sqrt(qy2)
+    qc = np.stack([m02 - m20, m01 + m10, sy * sy, m12 + m21],
+                  axis=-1) / (2.0 * sy[..., None])
+    sz = _safe_sqrt(qz2)
+    qd = np.stack([m10 - m01, m02 + m20, m12 + m21, sz * sz],
+                  axis=-1) / (2.0 * sz[..., None])
+    best = np.argmax(np.stack([qw2, qx2, qy2, qz2], axis=-1), axis=-1)
+    cand = np.stack([qa, qb, qc, qd], axis=-2)  # (..., 4 candidates, 4)
+    q = np.take_along_axis(cand, best[..., None, None], axis=-2)[..., 0, :]
+    q = quat_normalize(q)
+    return q * np.where(q[..., 0:1] < 0, -1.0, 1.0).astype(q.dtype)
+
+
 def so3_exp_quat(w) -> np.ndarray:
     """so(3) -> unit quaternion, Taylor-safe near zero."""
     w = np.asarray(w)

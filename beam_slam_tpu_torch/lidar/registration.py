@@ -25,6 +25,7 @@ import torch
 from torch.func import jacfwd
 
 from beam_slam_tpu_torch.core import lie
+from beam_slam_tpu_torch.core.autodiff import FORWARD_AD
 from beam_slam_tpu_torch.device import to_device
 from beam_slam_tpu_torch.lidar.cloud import FeatureCloud
 from beam_slam_tpu_torch.ops import knn as knn_ops
@@ -264,7 +265,8 @@ def _gn_step(q, p, corr: Corr, edges, surfs, cfg: LoamRegistrationConfig):
 
     delta0 = torch.zeros(6, dtype=edges.dtype, device=edges.device)
     r = residuals(delta0)
-    J = jacfwd(residuals)(delta0)
+    with FORWARD_AD:   # the smoother's worker runs forward AD too
+        J = jacfwd(residuals)(delta0)
     H = J.T @ J
     g = -J.T @ r
     Hd = H + 1e-4 * torch.eye(6, dtype=H.dtype, device=H.device)

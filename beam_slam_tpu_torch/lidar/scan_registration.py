@@ -114,6 +114,14 @@ class _LidarFrame:
                                                  self.p_bl)
         return q, p
 
+    def _baselink_from_lidar(self, q_wl, p_wl):
+        q_wl = np.asarray(q_wl, np.float32)
+        q_lb = _host(lie.quat_conj, self.q_bl)
+        p_lb = -_host(lie.quat_rotate, q_lb, self.p_bl)
+        q = _host(lie.quat_mul, q_wl, q_lb)
+        p = np.asarray(p_wl, np.float32) + _host(lie.quat_rotate, q_wl, p_lb)
+        return q, p
+
 
 class ScanToMapLoamRegistration(_LidarFrame):
     """Register scans against the rolling local map; emit chained relative

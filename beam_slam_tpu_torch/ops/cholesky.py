@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -227,8 +228,10 @@ def cholesky_solve_batched(H: torch.Tensor, g: torch.Tensor,
                  info.data_ptr(), B, N, cluster, stream)
     if err != 0:
         raise RuntimeError(f"cholesky kernel launch failed: cudaError {err}")
-    cholesky_solve_batched.launches += 1
+    with _LAUNCHES_LOCK:  # the smoother's async worker launches K1 too
+        cholesky_solve_batched.launches += 1
     return x, info
 
 
 cholesky_solve_batched.launches = 0
+_LAUNCHES_LOCK = threading.Lock()

@@ -118,12 +118,21 @@ def knn_topk_reference(query: torch.Tensor, ref: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain K2: matmul distances + ``torch.topk(largest=False)``, in blocks
     of ``CHUNK`` query rows (rows are independent, so blocking changes
-    nothing but the peak memory)."""
+    nothing but the peak memory). When at least k refs are valid, only the
+    valid ones enter the distances, in their order, and the indices are
+    mapped back: a ref at +inf is then never among the k nearest, so this
+    changes nothing but the work (a map of the LIO path is ~80% invalid
+    padding). Finding them waits for the device."""
+    keep = torch.nonzero(ref_valid).squeeze(1)
+    if keep.numel() >= k:
+        ref, ref_valid = ref[keep], ref_valid[keep]
+    else:
+        keep = None
     idx, d2 = [], []
     for qc in torch.split(query, CHUNK):
         v, i = torch.topk(_distances(qc, ref, ref_valid), k, dim=1,
                           largest=False)
-        idx.append(i)
+        idx.append(i if keep is None else keep[i])
         d2.append(v)
     if not idx:
         return (torch.zeros((0, k), dtype=torch.int64, device=query.device),

@@ -12,6 +12,7 @@ import torch
 from torch.func import jvp
 
 from beam_slam_tpu_torch.core import lie
+from beam_slam_tpu_torch.core.autodiff import FORWARD_AD
 from beam_slam_tpu_torch.core.factors import GRAVITY_NOMINAL
 from beam_slam_tpu_torch.device import resolve
 
@@ -69,9 +70,10 @@ class AnalyticTrajectory:
         def vel(tt):
             return jvp(self.p, (tt,), (one,))[1]
 
-        p, v = jvp(self.p, (t,), (one,))
-        acc_w = jvp(vel, (t,), (one,))[1]
-        q, qdot = jvp(self.q, (t,), (one,))
+        with FORWARD_AD:   # one forward-AD user at a time (core/autodiff)
+            p, v = jvp(self.p, (t,), (one,))
+            acc_w = jvp(vel, (t,), (one,))[1]
+            q, qdot = jvp(self.q, (t,), (one,))
         # body angular velocity: w = 2 · vec(q⁻¹ ⊗ q̇)
         w_body = 2.0 * lie.quat_mul(lie.quat_conj(q), qdot)[..., 1:4]
         # accelerometer measures R(q)ᵀ · (a_world - g)

@@ -9,6 +9,8 @@
     python3 chip_smoke.py smoother
                                  # build K1 and K2, then only the LIO+IMU
                                  # session of the fixed-lag smoother
+    python3 chip_smoke.py mapper # build K1 and K2, then only the LIO
+                                 # LocalMapper session (phase 11)
     python3 chip_smoke.py knn-counts [cpu|cuda]
                                  # K2's schedule (its mirror) at the LIO
                                  # shapes: the insertions each warp runs
@@ -42,7 +44,19 @@ kernel against its plain PyTorch version on the card:
     preintegrated IMU factor of a 200 Hz stream and a gravity factor; every
     LM step solves the 1024² reduced system with K1. Checked against
     ground truth, the window bound, marginalization, costs, K1 on that
-    system and one tick against the CPU plain path.
+    system and one tick against the CPU plain path;
+  * the LIO LocalMapper, the system's entry point, of
+    LocalMapperConfig.from_yaml("configs/lio.yaml") with the default async
+    tick (each solve on a worker thread and a side stream, harvested on the
+    next tick): 10 s of pipeline/sim_session's events, the vendored scan
+    seen from every scan's pose, through SLAM initialization (LIDAR mode:
+    registrations with K2, inertial alignment, the ignition solve with K1),
+    lidar odometry (the JSON tier's scan-to-map strategy, its crop boxes),
+    gravity alignment and inertial odometry. Checked against ground truth
+    (window after the flush, the ATE of each solve's newest state), the
+    transaction counters, every solve's costs, K1 on the mapper's system
+    and its last problem against the CPU plain path; timed per tick
+    (ingestion, tick, the worker's solve and its overlap with ingestion).
 
 Phases print one line each; any failure raises and exits non-zero. The
 line before the last two is the kernels' JSON record, then the card's name
@@ -50,12 +64,15 @@ and power limit, and the last line the run's JSON verdict. Requires CUDA:
 without a card it fails and prints no result.
 """
 
+import collections
+import dataclasses
 import gzip
 import json
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -103,37 +120,34 @@ MOM_DIFF_FRAC, MOM_EDGE_RTOL = 1e-3, 1e-6
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 
 
-# The LIO+IMU session (phase 11) at configs/lio.yaml's capacities.
-# pipeline/config.py is not ported yet, so its smoother configuration is
-# written out here; tests/test_torch_smoother.py holds it field by field
-# against LocalMapperConfig.from_yaml("configs/lio.yaml").smoother_config()
-# of the JAX package. One reduction: the tick is the sync one
-# (async_solve=False), the async tick comes with the pipeline.
+# The LIO+IMU session (phase 10) at configs/lio.yaml's capacities: the
+# smoother configuration of LocalMapperConfig.from_yaml("configs/lio.yaml")
+# with one reduction, the sync tick (async_solve=False); phase 11 runs the
+# whole mapper with the async tick.
 LIO_YAML = "lio.yaml"
 # GravityAlignment as LocalMapper wires it (pipeline/local_mapper.py: the
 # config's gravity_info_weight, 10 from configs/lio.yaml's information
 # weights tier; a 201-sample window; a 0.05 s gate)
 LIO_GRAVITY = dict(info_weight=10.0, smooth_window=201, max_imu_dt=0.05)
-SESSION_KF_DT, SESSION_S, IMU_RATE = 0.25, 6.5, 200.0
+SESSION_KF_DT, SESSION_S, IMU_RATE = 0.25, 4.5, 200.0  # 19 keyframes
 SESSION_SEED = 11                   # torch.Generator of the IMU noise
 SESSION_IMU_SIGMA = (2e-3, 2e-2)    # gyro rad/s, accel m/s² per sample
+# Phase 11, the LIO LocalMapper: 10 s of pipeline/sim_session's events
+# (its analytic trajectory, 200 Hz IMU, 10 Hz lidar, seed 11), every scan
+# the vendored one seen from that scan's lidar pose.
+MAPPER_S, MAPPER_LIDAR_HZ, MAPPER_SEED = 10.0, 10.0, 11
+MAPPER_PROFILED = 3                 # the last frames, under the profiler
 
 
 def lio_smoother_config():
     """The port's SmootherConfig for configs/lio.yaml (LIO mode): lag 4 s,
     period 0.04 s, pseudo-marginalization, 64 states, the other arenas at
     their defaults, vision arenas at 1, Cauchy 1.0 on relative poses, LM
-    capped at 40 steps with early exit at function tolerance 1e-6."""
-    from beam_slam_tpu_torch.solver import gauss_newton as gn
-    from beam_slam_tpu_torch.solver.smoother import SmootherConfig
-    return SmootherConfig(
-        lag_duration=4.0, optimization_period=0.04,
-        pseudo_marginalization=True, async_solve=False,
-        async_max_skipped_ticks=0, marginalization_prior_cov=1e-5,
-        max_states=64, max_landmarks=1, max_reprojection_factors=1,
-        max_idp_factors=1, cauchy_loss_rel_pose=1.0, max_solver_time_s=None,
-        solver=gn.SolverOptions(max_iterations=40, function_tolerance=1e-6,
-                                early_exit=True))
+    capped at 40 steps with early exit at function tolerance 1e-6 — with
+    the sync tick."""
+    from beam_slam_tpu_torch.pipeline.config import LocalMapperConfig
+    cfg = LocalMapperConfig.from_yaml(str(ROOT / "configs" / LIO_YAML))
+    return dataclasses.replace(cfg.smoother_config(), async_solve=False)
 
 
 def _spd(gen, B, N, cond=1e3):
@@ -1227,8 +1241,8 @@ def run_session(card="", device="cuda", n_keyframes=None):
         raise RuntimeError(f"session: launches {launches}")
     steady = ticks[1:len(ticks) - n_prof]   # not the first, not profiled
     walls = [t[1] for t in steady]
-    print(f"[10] LIO+IMU session (sync tick: the async tick comes with the "
-          f"pipeline), configs/lio.yaml capacities ({cfg.max_states} states, "
+    print(f"[10] LIO+IMU session (the sync tick; phase 11 runs the async "
+          f"one), configs/lio.yaml capacities ({cfg.max_states} states, "
           f"lag {cfg.lag_duration} s, LM <= {cfg.solver.max_iterations} "
           f"steps with early exit), {len(stamps)} keyframes every "
           f"{SESSION_KF_DT} s over {SESSION_S} s, IMU at {IMU_RATE:.0f} Hz: "
@@ -1323,6 +1337,328 @@ def run_session(card="", device="cuda", n_keyframes=None):
                 bound=bound, err=sys_err)
 
 
+def _union_ms(intervals):
+    """Total length of the union of (start, end) intervals, in ms of their
+    microseconds: the card's busy time when two streams overlap."""
+    busy, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def _overlap_s(span, intervals):
+    return sum(max(0.0, min(span[1], b) - max(span[0], a))
+               for a, b in intervals)
+
+
+def run_mapper(card="", device="cuda", duration_s=MAPPER_S):
+    """Phase 11: the LIO LocalMapper of configs/lio.yaml (SLAM
+    initialization in LIDAR mode, lidar odometry through the JSON tier's
+    scan-to-map strategy and crop boxes, gravity alignment, inertial
+    odometry, the default async tick) fed pipeline/sim_session's events,
+    every scan the vendored VLP-16 scan seen from that scan's lidar pose at
+    16 × 1800. K2 runs in every registration, K1 in every LM step of every
+    solve (the worker's), the ignition's included. Returns the launch
+    counts. ``device="cpu"`` (and a shorter ``duration_s``) rehearses the
+    phase off the card: no profiler, no kernel comparison."""
+    from beam_slam_tpu_torch import device as tdev
+    from beam_slam_tpu_torch.core import lie_np
+    from beam_slam_tpu_torch.ops import cholesky as chol
+    from beam_slam_tpu_torch.ops import knn
+    from beam_slam_tpu_torch.pipeline import sim_session as tss
+    from beam_slam_tpu_torch.pipeline.config import LocalMapperConfig
+    from beam_slam_tpu_torch.pipeline.local_mapper import LocalMapper
+    from beam_slam_tpu_torch.solver import gauss_newton as gn
+    from beam_slam_tpu_torch.utils.evaluation import ate_rmse
+
+    cuda = device == "cuda"
+    dev = None if cuda else device   # entry points: None is the card
+
+    def main_sync():   # the caller's stream only: the worker's runs on
+        if cuda:
+            torch.cuda.current_stream().synchronize()
+
+    cfg = LocalMapperConfig.from_yaml(str(ROOT / "configs" / LIO_YAML))
+    cfg.calibration = dataclasses.replace(
+        cfg.calibration, q_baselink_lidar=tss.Q_BL,
+        p_baselink_lidar=tss.P_BL)
+    traj, events, _ = tss.generate_session_events(
+        mode="LIO", duration_s=duration_s, imu_hz=IMU_RATE,
+        lidar_hz=MAPPER_LIDAR_HZ, seed=MAPPER_SEED, device=dev)
+    scan_t = [ev[1] for ev in events if ev[0] == "scan"]
+    gt = traj.sample(torch.tensor(scan_t, dtype=torch.float32,
+                                  device=traj.device))
+    gt_q, gt_p = tdev.to_numpy(gt.q, gt.p)
+    q_wl = lie_np.quat_mul(gt_q, tss.Q_BL[None])
+    p_wl = gt_p + lie_np.quat_rotate(gt_q, tss.P_BL[None])
+    cloud = _load_scan()
+    grids = {t: _observed_grid(cloud, q_wl[i], p_wl[i], dev)
+             for i, t in enumerate(scan_t)}
+    gt_at = {t: (gt_q[i], gt_p[i]) for i, t in enumerate(scan_t)}
+    frames, cur = [], []
+    for ev in events:   # one frame: its IMU samples, its scan, its tick
+        cur.append(ev)
+        if ev[0] == "tick":
+            frames.append(cur)
+            cur = []
+
+    mapper = LocalMapper(cfg, device=dev)
+    sm = mapper.smoother
+    harvests = []
+    harvest_fn = sm._harvest
+
+    def counted_harvest():
+        job = sm._inflight
+        diag = harvest_fn()
+        harvests.append(dict(job=job, span=sm.last_solve_span,
+                             c0=float(diag.initial_cost),
+                             c1=float(diag.final_cost),
+                             accepted=int(diag.iterations),
+                             k1=chol.cholesky_solve_batched.launches))
+        return diag
+    sm._harvest = counted_harvest
+
+    # host waits by thread: the sync debug mode's warnings (reads of a
+    # device value) and the event waits of HostCopy
+    syncs = collections.Counter()
+    numpy_fn = tdev.HostCopy.numpy
+
+    def counted_numpy(self):
+        if self._event is not None:
+            syncs[threading.current_thread() is threading.main_thread()] += 1
+        return numpy_fn(self)
+
+    def on_warning(message, *args, **kwargs):
+        if "synchroniz" in str(message):
+            syncs[threading.current_thread() is threading.main_thread()] += 1
+
+    # The newest state of each tick is, with the async tick, the IMU's
+    # prediction: its solve lands a tick later. The state a harvested solve
+    # brought back for the newest stamp it covered is the mapper's solved
+    # estimate of that stamp.
+    est_solved, dispatched = {}, [None]
+
+    def record_solved(n_before):
+        t = dispatched[0]
+        if len(harvests) > n_before and t is not None:
+            st = sm.try_get_state(t)
+            if st is not None:
+                est_solved[t] = st["p"].copy()
+        dispatched[0] = (sm.current_stamps()[-1]
+                         if sm._inflight is not None else None)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prof, prof_wall = None, None
+    rows, est, ign, n_harvests = [], {}, None, 0
+    chol.cholesky_solve_batched.launches = 0
+    knn.knn_topk.launches = 0
+    tdev.HostCopy.numpy = counted_numpy
+    t_run = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        if cuda:
+            torch.cuda.set_sync_debug_mode(1)
+        try:
+            for i, frame in enumerate(frames):
+                if cuda and i == len(frames) - MAPPER_PROFILED:
+                    prof = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+                    prof.__enter__()
+                    prof_wall = time.perf_counter()
+                was = mapper.initialized
+                s0 = dict(syncs)
+                k2_0 = knn.knn_topk.launches
+                t0 = time.perf_counter()
+                for ev in frame[:-1]:
+                    if ev[0] == "imu":
+                        mapper.on_imu(ev[1], ev[2], ev[3])
+                    else:
+                        t_scan = time.perf_counter()
+                        mapper.on_scan(ev[1], grids[ev[1]])
+                        main_sync()
+                        t1 = time.perf_counter()
+                t2 = time.perf_counter()
+                mapper.tick()
+                main_sync()
+                t3 = time.perf_counter()
+                if not was and mapper.initialized:
+                    ign = dict(stamp=mapper.init.result["stamp"],
+                               wall=t1 - t_run, scan_ms=1e3 * (t1 - t_scan),
+                               k1=chol.cholesky_solve_batched.launches,
+                               k2=knn.knn_topk.launches, frames=i + 1)
+                if was:
+                    rows.append(dict(
+                        ingest=(t0, t1), scan_ms=1e3 * (t1 - t_scan),
+                        tick_ms=1e3 * (t3 - t2),
+                        k2=knn.knn_topk.launches - k2_0,
+                        main_syncs=syncs[True] - s0.get(True, 0),
+                        worker_syncs=syncs[False] - s0.get(False, 0)))
+                if mapper.initialized and sm.current_stamps():
+                    newest = sm.current_stamps()[-1]
+                    est[newest] = sm.get_state(newest)["p"].copy()
+                    record_solved(n_harvests)
+                n_harvests = len(harvests)
+            if prof is not None:
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - prof_wall
+                prof.__exit__(None, None, None)
+            mapper.flush()
+            main_sync()
+            record_solved(n_harvests)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+            tdev.HostCopy.numpy = numpy_fn
+            sm._harvest = harvest_fn
+    wall = time.perf_counter() - t_run
+    launches = dict(k1=chol.cholesky_solve_batched.launches,
+                    k2=knn.knn_topk.launches)
+
+    # checks
+    if ign is None or not mapper.initialized:
+        raise RuntimeError("mapper: never initialized")
+    # the mapper's world frame is its first scan's, turned to gravity: hold
+    # the window against ground truth after the rigid transform that fits
+    # the window's poses best (the chordal mean of the rotation offsets,
+    # then the translation of the centroids)
+    stamps = sm.current_stamps()
+    states = [sm.get_state(t) for t in stamps]
+    R_est = lie_np.quat_to_matrix(np.stack([st["q"] for st in states]))
+    R_gt = lie_np.quat_to_matrix(np.stack([gt_at[t][0] for t in stamps]))
+    U, _, Vt = np.linalg.svd(np.einsum("nij,nkj->ik", R_gt, R_est))
+    R = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+    p_est = np.stack([st["p"] for st in states]).astype(np.float64)
+    tr = np.mean(np.stack([gt_at[t][1] for t in stamps]) - p_est @ R.T, 0)
+    q_align = lie_np.matrix_to_quat(R.astype(np.float32))
+    errs = {t: (float(np.linalg.norm(R @ st["p"] + tr - gt_at[t][1])),
+                _so3_err(lie_np.quat_mul(q_align, st["q"]), gt_at[t][0]))
+            for t, st in zip(stamps, states)}
+    worst = tuple(max(e[i] for e in errs.values()) for i in (0, 1))
+    t_worst = max(errs, key=lambda t: errs[t][0])
+    def newest_ate(e):
+        ts = sorted(e)
+        return ate_rmse(np.stack([e[t] for t in ts]),
+                        np.stack([gt_at[t][1] for t in ts]))
+    ate, ate_stale = newest_ate(est_solved), newest_ate(est)
+    c = sm.counters
+    jobs = [id(h["job"]) for h in harvests]   # each job is held: ids unique
+    bad = [h for h in harvests
+           if not (np.isfinite(h["c1"]) and h["c1"] <= h["c0"])]
+    print(f"[11] LIO LocalMapper, configs/lio.yaml ({cfg.max_states} "
+          f"states, lag {cfg.lag_duration} s, LM <= {cfg.max_iterations} "
+          f"steps with early exit, async tick, registration "
+          f"{type(mapper.lo.registration).__name__}, "
+          f"{len(mapper.lo.input_filters)} input filters), {duration_s} s "
+          f"of events at {IMU_RATE:.0f} Hz IMU / {MAPPER_LIDAR_HZ:.0f} Hz "
+          f"lidar: ignition at {ign['stamp']} s after {ign['frames']} scans "
+          f"({ign['wall']:.1f} s of wall, the igniting scan "
+          f"{ign['scan_ms']:.1f} ms); after the flush {len(stamps)} states, "
+          f"{stamps[0]}–{stamps[-1]} s, worst {worst[0]:.4f} m (at "
+          f"{t_worst} s) / {worst[1]:.4f} rad off ground truth "
+          f"(after the best rigid fit of the window's poses; bounds "
+          f"{GT_TRANS} / {GT_ROT}); ATE of the newest solved states "
+          f"{ate:.4f} m over {len(est_solved)} solves (bound {GT_TRANS}), "
+          f"of each tick's newest state (one solve stale) {ate_stale:.4f} "
+          f"m; counters {c}; "
+          f"{len(harvests)} solves harvested of {sm.solve_count} "
+          f"dispatched, {len(bad)} with a final cost above the initial",
+          flush=True)
+    if not (worst[0] < GT_TRANS and worst[1] < GT_ROT and ate < GT_TRANS
+            and c["dropped_transactions"] == 0 and not bad
+            and len(set(jobs)) == len(jobs) == sm.solve_count):
+        raise RuntimeError("mapper session failed its checks")
+    if cuda and not (launches["k1"] >= sm.solve_count
+                     and launches["k2"] >= 2 * len(scan_t) - 2):
+        raise RuntimeError(f"mapper: launches {launches}")
+
+    steps = [b["k1"] - a["k1"] for a, b in zip(harvests, harvests[1:])]
+    spans = [h["span"] for h in harvests[1:]]   # after the ignition solve
+    ingest = [r["ingest"] for r in rows]
+    solve_s = sum(b - a for a, b in spans)
+    shared = sum(_overlap_s(sp, ingest) for sp in spans)
+
+    def spread(xs, fmt=".1f"):
+        return (f"median {statistics.median(xs):{fmt}} (min {min(xs):{fmt}},"
+                f" max {max(xs):{fmt}})")
+    print(f"[11] per tick after ignition ({len(rows)} frames, {card}): "
+          f"ingestion (on_scan) ms {spread([r['scan_ms'] for r in rows])}; "
+          f"tick() ms {spread([r['tick_ms'] for r in rows])}; solve on the "
+          f"worker ms {spread([1e3 * (b - a) for a, b in spans])}; "
+          f"{100 * shared / max(solve_s, 1e-9):.1f}% of the solve wall "
+          f"overlapped ingestion; LM steps run a solve "
+          f"{spread(steps or [0])} (K1 launches), accepted "
+          f"{spread([h['accepted'] for h in harvests])}; K2 launches a "
+          f"frame {spread([r['k2'] for r in rows])}; host syncs a frame: "
+          f"main thread {spread([r['main_syncs'] for r in rows])}, worker "
+          f"{spread([r['worker_syncs'] for r in rows])}; during "
+          f"initialization K1 {ign['k1']} and K2 {ign['k2']} launches, in "
+          f"the whole phase K1 {launches['k1']} and K2 {launches['k2']}; "
+          f"wall {wall:.1f} s for {duration_s} s of sensor time, real-time "
+          f"factor (wall / sensor time) {wall / duration_s:.2f}",
+          flush=True)
+    if not cuda:
+        return dict(launches=launches)
+    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if any("chol_solve" in e.name for e in on_dev):
+        busy = _union_ms([(e.time_range.start, e.time_range.end)
+                          for e in on_dev])
+        print(f"[11] the last {MAPPER_PROFILED} frames under the profiler: "
+              f"{len(on_dev)} device ops, device time {busy:.2f} ms of "
+              f"{1e3 * prof_wall:.1f} ms wall (the union over both "
+              f"streams), so the card is idle "
+              f"{100 * (1 - busy / (1e3 * prof_wall)):.1f}% ({card})",
+              flush=True)
+    else:
+        print(f"[11] the last {MAPPER_PROFILED} frames under the profiler: "
+              f"the profiler lost K1's events; device time not measured",
+              flush=True)
+
+    # K1 on the mapper's own reduced system, against its plain version
+    window, fams, losses = sm._build_device_problem()
+    H, g, H_ll, g_l, W, _ = gn.assemble_normal_equations(window, fams,
+                                                         losses)
+    free = torch.cat([window.dense_free_mask(),
+                      torch.zeros(1, dtype=torch.bool, device="cuda")])
+    lm_free = window.landmarks.active & ~window.landmarks.held
+    opts = sm.cfg.solver
+    Hp, gp, _ = gn._damped_reduced_system(
+        H, g, free, torch.tensor(opts.initial_lambda, device="cuda"),
+        H_ll, g_l, W, lm_free)
+    Hp, gp = Hp[None].contiguous(), gp[None].contiguous()
+    x, _ = chol.cholesky_solve_batched(Hp, gp)
+    x_ref, _ = chol.cholesky_solve_batched_reference(Hp, gp)
+    torch.cuda.synchronize()
+    sys_err = float((x - x_ref).abs().max())
+    # the same tick's problem on the card and on the CPU plain path
+    out, diag = gn.solve(window, fams, losses, opts)
+    out_cpu, diag_cpu = gn.solve(window.to("cpu"),
+                                 tuple(f.to("cpu") for f in fams), losses,
+                                 opts)
+    c1, c1_cpu = float(diag.final_cost), float(diag_cpu.final_cost)
+    gap = abs(c1 - c1_cpu) / max(c1_cpu, 1e-30)
+    dp = float((out.imu.p.cpu() - out_cpu.imu.p).abs().max())
+    print(f"[11] K1 on the mapper's reduced system {tuple(Hp.shape[1:])}: "
+          f"max|x-x_ref|={sys_err:.3e} (bound "
+          f"{X_TOL * float(x_ref.abs().max()):.3e}); its last problem, card "
+          f"vs CPU plain path: final cost {c1:.6g} / {c1_cpu:.6g} (rel gap "
+          f"{gap:.2e}, bound {COST_RTOL}), max|dp| {dp:.2e} m (bound "
+          f"{DP_TOL})", flush=True)
+    if Hp.shape[1:] != (1024, 1024) or not sys_err <= X_TOL * float(
+            x_ref.abs().max()):
+        raise RuntimeError("K1 on the mapper's reduced system disagrees")
+    if not (gap <= COST_RTOL and dp <= DP_TOL):
+        raise RuntimeError("the mapper's problem on the card disagrees with "
+                           "the CPU plain path")
+    return dict(launches=launches)
+
+
 def main(only: str = "") -> int:
     # ---- 1. require CUDA
     if not torch.cuda.is_available():
@@ -1347,7 +1683,7 @@ def main(only: str = "") -> int:
     libs = {"bst_cholesky": chol, "bst_knn": knn, "bst_moments": moments}
     if only:
         wanted = dict(k1=(chol,), k2=(knn,), k3=(moments,),
-                      smoother=(chol, knn))[only]
+                      smoother=(chol, knn), mapper=(chol, knn))[only]
         libs = {name: mod for name, mod in libs.items() if mod in wanted}
     built = nvcc_build.build_many([(name, mod.SOURCES)
                                    for name, mod in libs.items()])
@@ -1363,6 +1699,10 @@ def main(only: str = "") -> int:
 
     if only == "smoother":  # the LIO+IMU session alone
         run_session(card)
+        print(card)
+        return 0
+    if only == "mapper":  # the LIO LocalMapper alone
+        run_mapper(card)
         print(card)
         return 0
     if only in ("k2", "k3"):  # alone, on a map built at ground-truth poses
@@ -1476,7 +1816,10 @@ def main(only: str = "") -> int:
     # ---- 10. the LIO+IMU session of the fixed-lag smoother (K1, K2)
     sess = run_session(card)
 
-    # ---- 11. records (K2 at the surface shape, the larger of the two)
+    # ---- 11. the LIO LocalMapper of configs/lio.yaml (K1, K2)
+    mapper = run_mapper(card)
+
+    # ---- 12. records (K2 at the surface shape, the larger of the two)
     kb1, kb1_by = _chol_bound(1, 640)
     k2s = kc["k2"]["times"]["surfaces"]
     k3s = kc["k3"]["times"]["surfaces"]
@@ -1485,7 +1828,7 @@ def main(only: str = "") -> int:
         "source": "beam_slam_tpu_torch/csrc/cholesky.cu",
         "replaces": "beam_slam_tpu/ops/pallas_cholesky.py:226",
         "launches": (launches_flagship + launches_batched
-                     + sess["launches"]["k1"]),
+                     + sess["launches"]["k1"] + mapper["launches"]["k1"]),
         "max_abs_err": max_err, "ms": times[1][0], "plain_ms": times[1][1],
         "bound_ms": kb1, "bound_by": kb1_by,
         # the plain version is the library pair cholesky_ex + cholesky_solve
@@ -1494,7 +1837,8 @@ def main(only: str = "") -> int:
         "name": "knn_topk", "route": "cuda",
         "source": "beam_slam_tpu_torch/csrc/knn.cu",
         "replaces": "beam_slam_tpu/ops/pallas_knn.py:110",
-        "launches": lio["launches"] + sess["launches"]["k2"],
+        "launches": (lio["launches"] + sess["launches"]["k2"]
+                     + mapper["launches"]["k2"]),
         "max_abs_err": kc["k2"]["err"],
         "ms": k2s["ms"], "plain_ms": k2s["plain"],
         "bound_ms": k2s["bound"][0], "bound_by": k2s["bound"][1],
@@ -1519,7 +1863,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["knn-counts"]:
         knn_counts((sys.argv[2:] or ["cuda"])[0])
         sys.exit(0)
-    if sys.argv[1:] not in ([], ["k1"], ["k2"], ["k3"], ["smoother"]):
-        sys.exit(f"usage: {sys.argv[0]} [k1 | k2 | k3 | smoother | "
+    if sys.argv[1:] not in ([], ["k1"], ["k2"], ["k3"], ["smoother"],
+                            ["mapper"]):
+        sys.exit(f"usage: {sys.argv[0]} [k1 | k2 | k3 | smoother | mapper | "
                  f"knn-counts [cpu|cuda]]")
     sys.exit(main(only=(sys.argv[1:] or [""])[0]))

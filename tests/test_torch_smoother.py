@@ -30,6 +30,7 @@ import numpy.testing as npt
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from beam_slam_tpu.imu import preintegration as jpre
@@ -252,13 +253,54 @@ def test_smoother_from_numpy_round_trip(session):
     _assert_ticks_agree(_state(sj), _state(st), dj, dt, "after the copy")
 
 
-def test_async_tick_is_not_ported():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tsm.FixedLagSmoother(tsm.SmootherConfig(async_solve=True), "cpu")
+@pytest.mark.parametrize("max_skipped,force_skip", [(0, 0), (2, 2)])
+def test_async_tick_matches_reference(monkeypatch, max_skipped, force_skip):
+    """The double-buffered tick (async_solve) on both sides over the same
+    session: after every tick the same stamps, counters, pending queue and
+    returned diagnostics (each tick returns the previous solve's, or None
+    on a skipped tick), states within the session's tolerances; then the
+    flushed last solve. With async_max_skipped_ticks=2 and
+    BEAM_SLAM_ASYNC_FORCE_SKIP=2 both skip two ticks and block-harvest on
+    the third, on both sides the same sequence."""
+    monkeypatch.setenv("BEAM_SLAM_ASYNC_FORCE_SKIP", str(force_skip))
+    ticks, gt = _transactions()
+    cfg_j, cfg_t = (dataclasses.replace(c, async_solve=True,
+                                        async_max_skipped_ticks=max_skipped)
+                    for c in _configs())
+    sj, st = jsm.FixedLagSmoother(cfg_j), tsm.FixedLagSmoother(cfg_t, "cpu")
+    harvests = []
+    for k, tick in enumerate(ticks[:-1]):
+        for txn in tick(jsm):
+            sj.send_transaction(txn)
+        for txn in tick(tsm):
+            st.send_transaction(txn)
+        dj, dt = sj.run_once(), st.run_once()
+        if sj._inflight is not None:
+            # the reference's dispatched solve reads host buffers that the
+            # next skipped tick's ingestion overwrites in place; wait for it
+            # so that it solves the problem it was given (ROADMAP Queue 3)
+            jax.block_until_ready(sj._inflight[0])
+        _assert_ticks_agree(_state(sj), _state(st), dj, dt, f"tick {k}")
+        assert sj.solve_count == st.solve_count
+        assert sj.last_solved_stamp == st.last_solved_stamp
+        harvests.append(dt is not None)
+    dj, dt = sj.flush(), st.flush()
+    _assert_ticks_agree(_state(sj), _state(st), dj, dt, "flush")
+    assert st._inflight is None and dt is not None
+    if max_skipped:
+        # dispatch, skip, skip, harvest+dispatch, ...: the states ingested
+        # while a solve was in flight keep their seeds until a later solve
+        assert harvests == [False, False, False, True, False, False, True,
+                            False, False][:len(harvests)]
+        return
+    assert harvests == [False] + [True] * (len(harvests) - 1)
+    last = _state(st)
+    for t in last["stamps"]:  # every state solved: the window tracks truth
+        assert np.linalg.norm(last["p"][t] - gt[t][1]) < 0.05
 
 
 def test_lio_config_matches_reference():
-    """chip_smoke.py's hand-built configs/lio.yaml smoother configuration
+    """chip_smoke.py's configs/lio.yaml smoother configuration of phase 10
     equals the JAX LocalMapperConfig's, field by field, but for the one
     stated reduction: the sync tick (async_solve False where the reference
     defaults to its async tick)."""
