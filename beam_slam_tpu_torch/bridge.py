@@ -25,6 +25,8 @@ from beam_slam_tpu_torch.core.window import (ImuStates, Landmarks,
                                              MotionStates, Poses, WindowState)
 from beam_slam_tpu_torch.lidar.cloud import FeatureCloud, RingGrid
 from beam_slam_tpu_torch.lidar.registration_map import RegistrationMap
+from beam_slam_tpu_torch.models.visual_feature_tracker import \
+    CameraMeasurement
 from beam_slam_tpu_torch.solver.smoother import (ARENA_FAMILIES,
                                                  FixedLagSmoother,
                                                  SmootherConfig)
@@ -79,19 +81,36 @@ def ring_grid_from_numpy(fields: Mapping[str, np.ndarray],
     return _build(RingGrid, fields, device)
 
 
+def camera_measurement_from_numpy(fields: Mapping[str, object]
+                                  ) -> CameraMeasurement:
+    """{"stamp", "ids", "pixels", "pixels_undistorted"} (the JAX package's
+    CameraMeasurement as numpy) → the port's CameraMeasurement, on the
+    host as the port keeps it."""
+    return CameraMeasurement(
+        stamp=float(fields["stamp"]),
+        ids=np.asarray(fields["ids"]).astype(np.int64),
+        pixels=np.asarray(fields["pixels"], np.float32).copy(),
+        pixels_undistorted=np.asarray(fields["pixels_undistorted"],
+                                      np.float32).copy())
+
+
 def session_events_from_numpy(events, device) -> list:
     """The JAX package's session events (``generate_session_events``: a
-    time-sorted list of ("imu", t, w, a), ("scan", t, grid) and ("tick", t)
-    tuples), each scan's grid given as a dict of numpy arrays (see
-    :func:`ring_grid_from_numpy`) → the port's events, the grids on
-    ``device``. Camera and pose events belong to the vision slice and are
-    refused."""
+    time-sorted list of ("imu", t, w, a), ("scan", t, grid),
+    ("cam", measurement), ("pose", t, q, p) and ("tick", t) tuples), each
+    scan's grid given as a dict of numpy arrays (see
+    :func:`ring_grid_from_numpy`) and each camera measurement as one (see
+    :func:`camera_measurement_from_numpy`) → the port's events, the grids
+    on ``device``."""
     out = []
     for ev in events:
         if ev[0] == "scan":
             out.append(("scan", ev[1], ring_grid_from_numpy(ev[2], device)))
-        elif ev[0] == "imu":
-            out.append(("imu", ev[1], np.asarray(ev[2]), np.asarray(ev[3])))
+        elif ev[0] in ("imu", "pose"):
+            out.append((ev[0], ev[1], np.asarray(ev[2], np.float32),
+                        np.asarray(ev[3], np.float32)))
+        elif ev[0] == "cam":
+            out.append(("cam", camera_measurement_from_numpy(ev[1])))
         elif ev[0] == "tick":
             out.append(ev)
         else:

@@ -11,8 +11,9 @@ ignition graph; SendInitializationGraph).
 
 Modes (slam_initialization.h:30): LIDAR (LidarPathInit chain of scan-to-map
 registrations, kernel K2 on every one), FRAMEINIT (poses from a frame
-initializer / external odometry). VISUAL mode (an SfM path from feature
-tracks) comes with the vision slice of the port and raises until then.
+initializer / external odometry), VISUAL (an up-to-scale SfM path from
+feature tracks, vision::utils ComputePathWithVision, scaled by the
+inertial alignment).
 """
 
 from __future__ import annotations
@@ -116,6 +117,9 @@ class SLAMInitialization:
                                np.float32)
         self.vis_tracks: Dict[int, list] = {}
         self.vis_stamps: List[float] = []
+        # the SfM RANSAC's samples: (n_points, n_hypotheses) -> indices;
+        # None draws them from a seeded generator
+        self.ransac_idx: Optional[Callable[[int, int], np.ndarray]] = None
         self.initialized = False
         self.result: Optional[dict] = None
 
@@ -138,13 +142,40 @@ class SLAMInitialization:
         return False
 
     def add_camera_measurement(self, meas) -> bool:
-        """VISUAL mode: SfM ignition from feature tracks; it needs the
-        vision slice of the port (vision/sfm.py), which is not ported."""
+        """VISUAL mode: buffer feature tracks; attempt SfM ignition
+        (ComputePathWithVision → scale/gravity alignment → ignition graph).
+        The SfM geometry runs on the initializer's device; its essential
+        RANSAC draws its samples from ``ransac_idx`` when set (see
+        :func:`beam_slam_tpu_torch.vision.sfm.compute_path_with_vision`)."""
         if self.initialized or self.params.mode != "VISUAL":
             return False
-        raise NotImplementedError(
-            "VISUAL SLAM initialization needs vision/sfm.py, which is ported "
-            "with the vision slice (slice 5)")
+        if self.camera is None:
+            raise ValueError("VISUAL init mode requires a camera model")
+        for i, lm_id in enumerate(meas.ids):
+            self.vis_tracks.setdefault(int(lm_id), []).append(
+                (meas.stamp, np.asarray(meas.pixels_undistorted[i])))
+        if (not self.vis_stamps
+                or meas.stamp - self.vis_stamps[-1]
+                >= self.params.keyframe_spacing_s):
+            self.vis_stamps.append(meas.stamp)
+        if len(self.vis_stamps) < 4 or len(self.imu_t) < 50:
+            return False
+
+        from beam_slam_tpu_torch.vision.sfm import compute_path_with_vision
+        cam_path = compute_path_with_vision(
+            self.camera, self.vis_tracks, self.vis_stamps,
+            device=self.device, ransac_idx=self.ransac_idx)
+        if cam_path is None:
+            return False
+        # camera path → baselink path via T_BASELINK_CAMERA
+        q_cb = lie.quat_conj(self.q_bc)
+        p_cb = -lie.quat_rotate(q_cb, self.p_bc)
+        path = []
+        for (t, q_wc, p_wc) in cam_path:
+            q_wb = lie.quat_mul(q_wc, q_cb)
+            p_wb = p_wc + lie.quat_rotate(q_wc, p_cb)
+            path.append((t, q_wb, p_wb))
+        return self._try_initialize(path, estimate_scale=True)
 
     def add_pose(self, stamp: float, q_wb, p_wb) -> bool:
         """FRAMEINIT mode: external pose source."""

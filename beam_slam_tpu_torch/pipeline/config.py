@@ -369,12 +369,42 @@ class LocalMapperConfig:
             if "scaling" in lf:  # HUBER/CAUCHY scale → our Cauchy scale
                 self.robust_loss_scale = float(lf["scaling"])
 
-    def build_tracker(self, camera):
-        """The VisualFeatureTracker of the vo/ JSON kernel configs: it comes
-        with the vision slice of the port and raises until then."""
-        raise NotImplementedError(
-            "the visual feature tracker is ported with the vision slice "
-            "(slice 5)")
+    def build_tracker(self, camera, device=None):
+        """VisualFeatureTracker honoring the vo/ JSON kernel configs
+        (fastssc_detector.json / tracker.json / orb_descriptor.json), on
+        ``device`` (the card unless asked otherwise)."""
+        from beam_slam_tpu_torch.models.visual_feature_tracker import \
+            VisualFeatureTracker
+        from beam_slam_tpu_torch.vision import detector as det
+        from beam_slam_tpu_torch.vision import tracker as trk
+
+        fast_kwargs = {"threshold": 15.0}
+        min_features = 40
+        if self.detector_config:
+            with open(self._resolve(self.detector_config)) as f:
+                d = json.load(f)
+            if "threshold" in d:
+                fast_kwargs["threshold"] = float(d["threshold"])
+            if "num_features" in d:
+                min_features = int(d["num_features"])
+        lk_kwargs = {}
+        if self.tracker_config:
+            with open(self._resolve(self.tracker_config)) as f:
+                t = json.load(f)
+            if "win_size_u" in t or "win_size_v" in t:
+                w = max(int(t.get("win_size_u", 7)),
+                        int(t.get("win_size_v", 7)))
+                lk_kwargs["window"] = w if w % 2 == 1 else w + 1
+            if "max_level" in t:   # OpenCV maxLevel is 0-based
+                lk_kwargs["levels"] = int(t["max_level"]) + 1
+            if "criteria_max_count" in t:
+                lk_kwargs["iterations"] = int(t["criteria_max_count"])
+        # descriptor_config (orb patch size) is accepted for config parity;
+        # descriptors come with the reloc layer
+        return VisualFeatureTracker(
+            camera, fast_cfg=det.FastConfig(**fast_kwargs),
+            lk_cfg=trk.LKConfig(**lk_kwargs), min_features=min_features,
+            device=device)
 
     @staticmethod
     def from_yaml(path: str) -> "LocalMapperConfig":

@@ -1,18 +1,20 @@
-"""Local mapper: host orchestration of the LIO pipeline (port of
-:mod:`beam_slam_tpu.pipeline.local_mapper`).
+"""Local mapper: host orchestration of the full LIO/VIO/LVIO pipeline (port
+of :mod:`beam_slam_tpu.pipeline.local_mapper`).
 
 Replaces the reference's ROS wiring (SURVEY.md §2.7): the fixed-lag-smoother
 node + plugin sensor models + trigger topics become one host object with
-direct callbacks. Sensors feed ``on_imu`` / ``on_scan``; before ignition
-everything buffers into SLAMInitialization; after ignition the models emit
+direct callbacks. Sensors feed ``on_imu`` / ``on_scan`` /
+``on_image`` / ``on_camera_measurement``; before ignition everything
+buffers into SLAMInitialization; after ignition the models emit
 transactions and the smoother ticks at ``optimization_period`` (or per
 keyframe). SlamChunks for the global mapper are surfaced through
 ``chunk_cb`` (the SlamChunkMsg topic).
 
 The mapper runs on ``device``, the card unless the caller asks for another
 (``device="cpu"``): the smoother's solve (K1 on the card), every
-registration (K2), the IMU path. LIO is ported; VIO and LVIO need the
-vision slice of the port and raise at construction until then.
+registration (K2), the IMU path, the feature tracker's detection and
+tracking. Visual odometry's per-frame geometry is host numpy, as in the
+JAX package.
 
 The reset protocol (fixed_lag_smoother.cpp:479-546) is ``reset()``: clears
 the graph and all model state and re-enters the initialization phase.
@@ -36,6 +38,9 @@ from beam_slam_tpu_torch.models.lidar_odometry import (LidarOdometry,
                                                        SlamChunk)
 from beam_slam_tpu_torch.models.slam_initialization import (
     LidarPathInit, SLAMInitialization)
+from beam_slam_tpu_torch.models.visual_feature_tracker import \
+    CameraMeasurement
+from beam_slam_tpu_torch.models.visual_odometry import VisualOdometry
 from beam_slam_tpu_torch.pipeline.config import LocalMapperConfig
 from beam_slam_tpu_torch.solver.smoother import FixedLagSmoother, Transaction
 
@@ -44,16 +49,14 @@ class LocalMapper:
     def __init__(self, config: LocalMapperConfig = LocalMapperConfig(),
                  chunk_cb: Optional[Callable[[SlamChunk], None]] = None,
                  device=None):
-        if config.mode != "LIO":
-            raise NotImplementedError(
-                f"{config.mode} needs the visual odometry and the feature "
-                "tracker, which are ported with the vision slice (slice 5); "
-                "the port runs LIO")
         self.cfg = config
         self.device = resolve(device)
         cal = config.calibration
         self.smoother = FixedLagSmoother(config.smoother_config(),
                                          device=self.device)
+
+        use_lidar = config.mode in ("LIO", "LVIO")
+        use_vision = config.mode in ("VIO", "LVIO")
 
         if cal.imu_intrinsics is not None:
             # robot imu.json noise densities override the pipeline YAML;
@@ -81,29 +84,51 @@ class LocalMapper:
 
         q_bl = cal.q_baselink_lidar
         p_bl = cal.p_baselink_lidar
-        if q_bl is not None:
-            self.smoother.register_extrinsic(lsr.LIDAR_SENSOR, q_bl, p_bl)
-        else:
-            self.smoother.register_extrinsic(
-                lsr.LIDAR_SENSOR, np.array([1, 0, 0, 0], np.float32),
-                np.zeros(3))
-        # registration/matcher factory (ScanRegistrationBase::Create):
-        # honors the JSON sub-config tier when configured
-        reg, feat_cfg = config.build_scan_registration(
-            q_bl=q_bl, p_bl=p_bl, device=self.device)
-        self.lo = LidarOdometry(
-            self.smoother, reg, LidarOdometryParams(),
-            loam_cfg=feat_cfg or config.loam,
-            trigger_cb=self._trigger,
-            frame_initializer=self._frame_init,
-            chunk_cb=chunk_cb,
-            input_filters=config.build_input_filters(),
-            device=self.device)
+        self.lo = None
+        if use_lidar:
+            if q_bl is not None:
+                self.smoother.register_extrinsic(lsr.LIDAR_SENSOR, q_bl, p_bl)
+            else:
+                self.smoother.register_extrinsic(
+                    lsr.LIDAR_SENSOR, np.array([1, 0, 0, 0], np.float32),
+                    np.zeros(3))
+            # registration/matcher factory (ScanRegistrationBase::Create):
+            # honors the JSON sub-config tier when configured
+            reg, feat_cfg = config.build_scan_registration(
+                q_bl=q_bl, p_bl=p_bl, device=self.device)
+            self.lo = LidarOdometry(
+                self.smoother, reg, LidarOdometryParams(),
+                loam_cfg=feat_cfg or config.loam,
+                trigger_cb=self._trigger,
+                frame_initializer=self._frame_init,
+                chunk_cb=chunk_cb,
+                input_filters=config.build_input_filters(),
+                device=self.device)
+
         self.vo = None
         self.tracker = None
+        if use_vision:
+            if cal.camera is None:
+                raise ValueError(f"{config.mode} needs a camera calibration")
+            self.smoother.register_extrinsic(
+                "cam0",
+                cal.q_baselink_cam if cal.q_baselink_cam is not None
+                else np.array([1, 0, 0, 0], np.float32),
+                cal.p_baselink_cam if cal.p_baselink_cam is not None
+                else np.zeros(3))
+            self.tracker = config.build_tracker(cal.camera,
+                                                device=self.device)
+            self.vo = VisualOdometry(
+                self.smoother, cal.camera, config.vo, sensor_name="cam0",
+                trigger_cb=self._trigger,
+                frame_initializer=self._frame_init,
+                chunk_cb=chunk_cb)
 
+        init_params = config.init
+        if config.mode == "VIO" and init_params.mode == "LIDAR":
+            init_params.mode = "FRAMEINIT"
         self.init = SLAMInitialization(
-            self.smoother, config.init, config.imu,
+            self.smoother, init_params, config.imu,
             lidar_path=LidarPathInit(config.loam, q_bl=q_bl, p_bl=p_bl,
                                      device=self.device),
             on_initialized=self._on_initialized,
@@ -143,8 +168,14 @@ class LocalMapper:
                            self.init.imu_a):
             if t >= result["stamp"]:
                 self.io.model.add_imu(t, w, a)
-        self.lo.initialize(result["stamp"])
-        self.lo.last_stamp = result["stamp"]
+        if self.lo is not None:
+            self._carry_init_map(result["stamp"])
+        if self.vo is not None:
+            self.vo.initialize(result["stamp"])
+
+    def _carry_init_map(self, t_init: float):
+        self.lo.initialize(t_init)
+        self.lo.last_stamp = t_init
         # Carry the init-phase registration map over, rebased into the
         # gravity-aligned frame (SLAMInitialization::UpdateRegistrationMap,
         # slam_initialization.cpp:364) — starting from an empty map makes
@@ -187,6 +218,8 @@ class LocalMapper:
     def on_scan(self, t: float, grid: RingGrid) -> bool:
         if not self.initialized:
             return self.init.add_scan(t, grid)
+        if self.lo is None:
+            return False
         ok = self.lo.process_scan(t, grid)
         if ok:
             self._pending_tick = True
@@ -204,13 +237,28 @@ class LocalMapper:
         return self.on_scan(msg.stamp, grid)
 
     def on_image(self, t: float, image) -> bool:
-        """No camera in LIO: the image is ignored, as the reference's LIO
-        mapper ignores it."""
-        return False
+        """A camera image ([H, W] intensities): the feature tracker's
+        measurement goes to :meth:`on_camera_measurement`. LIO has no
+        camera and ignores it."""
+        if self.tracker is None:
+            return False
+        meas = self.tracker.process_image(t, image)
+        return self.on_camera_measurement(meas)
 
-    def on_camera_measurement(self, meas) -> bool:
-        """No camera in LIO (see :meth:`on_image`)."""
-        return False
+    def on_camera_measurement(self, meas: CameraMeasurement) -> bool:
+        """One frame's tracked features: VISUAL initialization before the
+        ignition, visual odometry after it. True when a keyframe (or the
+        ignition) came of it."""
+        if self.vo is None:
+            return False
+        if not self.initialized:
+            if self.cfg.init.mode == "VISUAL":
+                return self.init.add_camera_measurement(meas)
+            return False
+        kf = self.vo.process_measurements(meas)
+        if kf:
+            self._pending_tick = True
+        return kf
 
     def on_pose(self, t: float, q_wb, p_wb) -> bool:
         """FRAMEINIT-mode initialization input."""
@@ -231,7 +279,8 @@ class LocalMapper:
         """Drain in-flight async work: pipelined-registration factors still
         in the device pipeline, then the double-buffered solve. Call at
         session end before reading final states."""
-        if getattr(self.lo.registration, "pending", None):
+        if (self.lo is not None
+                and getattr(self.lo.registration, "pending", None)):
             txn = Transaction(stamp=self.lo.last_stamp)
             self.lo.registration.flush_pending(txn)
             self.smoother.send_transaction(txn)

@@ -11,6 +11,9 @@
                                  # session of the fixed-lag smoother
     python3 chip_smoke.py mapper # build K1 and K2, then only the LIO
                                  # LocalMapper session (phase 11)
+    python3 chip_smoke.py lvio   # build K1 and K2, then only phase 12: the
+                                 # LVIO and VIO LocalMappers and the image
+                                 # front end
     python3 chip_smoke.py knn-counts [cpu|cuda]
                                  # K2's schedule (its mirror) at the LIO
                                  # shapes: the insertions each warp runs
@@ -56,7 +59,17 @@ kernel against its plain PyTorch version on the card:
     (window after the flush, the ATE of each solve's newest state), the
     transaction counters, every solve's costs, K1 on the mapper's system
     and its last problem against the CPU plain path; timed per tick
-    (ingestion, tick, the worker's solve and its overlap with ingestion).
+    (ingestion, tick, the worker's solve and its overlap with ingestion);
+  * the LVIO LocalMapper of configs/lvio.yaml at its full width (64 states,
+    lag 10 s, LM up to 10 steps, 256 landmarks, 4096 reprojection factors,
+    the LVIO information-weight tier, the pipelined scan-to-map strategy on
+    the device map, initialization at 3.5 m, the async tick): sim_session's
+    LVIO events (200 Hz IMU, 20 Hz camera, 10 Hz lidar, its structured
+    16 × 504 scene) through SLAM initialization, lidar and visual odometry,
+    gravity alignment and inertial odometry, with the same checks as the
+    LIO mapper plus the visual map's; the feature tracker of its vo/ JSON
+    tier card vs CPU on a moving 640 × 480 texture; and the VIO LocalMapper
+    of configs/vio.yaml, its ignition from the camera's SfM path.
 
 Phases print one line each; any failure raises and exits non-zero. The
 line before the last two is the kernels' JSON record, then the card's name
@@ -136,7 +149,28 @@ SESSION_IMU_SIGMA = (2e-3, 2e-2)    # gyro rad/s, accel m/s² per sample
 # (its analytic trajectory, 200 Hz IMU, 10 Hz lidar, seed 11), every scan
 # the vendored one seen from that scan's lidar pose.
 MAPPER_S, MAPPER_LIDAR_HZ, MAPPER_SEED = 10.0, 10.0, 11
-MAPPER_PROFILED = 3                 # the last frames, under the profiler
+# The last ticks (phase 10) and frames (phases 11, 12a) run under the
+# profiler. One each: turning the profiler's events into the idle share
+# costs ~2 ms of host time per device op, and three ticks at the LM step
+# cap held ~180K of them (~6 minutes of the script's wall).
+SESSION_PROFILED = MAPPER_PROFILED = 1
+MAPPER_YAML = {"LIO": LIO_YAML, "LVIO": "lvio.yaml", "VIO": "vio.yaml"}
+# Phase 12: the LVIO mapper (12a) at lvio.yaml's full width and the VIO
+# mapper (12c) with VISUAL initialization, the camera at 20 Hz; the image
+# front end (12b) on a seeded 640 × 480 texture moving 0.35 / -0.65 px a
+# frame, its tracks card vs CPU within FRONT_END_PX.
+LVIO_S, VIO_S, CAM_HZ = 14.0, 4.0, 20.0
+# 12c ignites after 1.0 m of SfM path, not vio.yaml's 3.0 m: until it
+# ignites, VISUAL initialization reruns the SfM path and the inertial
+# alignment on every camera frame, ~5 s a frame on the card, and at 3.0 m
+# (6.65 s of these events) that took 650.8 s of the phase's 658.5 s.
+VIO_INIT_M = 1.0
+# 12a's lidar sees the session's own structured 16 × 504 scene: on the
+# vendored scan the LVIO mapper of lvio.yaml leaves ground truth in the JAX
+# package as in the port (tests/test_torch_lvio_vendored.py; ROADMAP
+# Queue 3).
+FRONT_END_SEED, FRONT_END_FRAMES, FRONT_END_STEP = 13, 10, (0.35, -0.65)
+FRONT_END_PX = 1e-3
 
 
 def lio_smoother_config():
@@ -1178,7 +1212,7 @@ def run_session(card="", device="cuda", n_keyframes=None):
         return diag, wall, host_waits[0] + sum(
             "synchroniz" in str(w.message) for w in caught)
 
-    n_prof = 3 if cuda else 0   # the last ticks run under the profiler
+    n_prof = SESSION_PROFILED if cuda else 0
     chol.cholesky_solve_batched.launches = 0
     knn.knn_topk.launches = 0
     fed, ticks, prof = 0, [], []
@@ -1269,12 +1303,13 @@ def run_session(card="", device="cuda", n_keyframes=None):
     if all(prof):
         busy = sum(p[0] for p in prof)
         wall3 = sum(p[2] for p in prof)
-        print(f"[10] three ticks under the profiler: "
+        print(f"[10] the last {n_prof} ticks under the profiler: "
               f"{sum(p[1] for p in prof)} device ops, device time "
               f"{busy:.2f} ms of {wall3:.1f} ms wall, so the card is idle "
               f"{100 * (1 - busy / wall3):.1f}% ({card})", flush=True)
     else:
-        print(f"[10] three ticks under the profiler: the profiler lost the "
+        print(f"[10] the last {n_prof} ticks under the profiler: the "
+              f"profiler lost the "
               f"events of {sum(not p for p in prof)} of them; device time "
               f"not measured", flush=True)
 
@@ -1310,16 +1345,19 @@ def run_session(card="", device="cuda", n_keyframes=None):
     # the same tick's problem on the card and on the CPU plain path
     opts = cfg.solver
     out, diag = gn.solve(window, fams, losses, opts)
+    t_cpu = time.perf_counter()
     out_cpu, diag_cpu = gn.solve(window.to("cpu"),
                                  tuple(f.to("cpu") for f in fams), losses,
                                  opts)
+    t_cpu = time.perf_counter() - t_cpu
     c1, c1_cpu = float(diag.final_cost), float(diag_cpu.final_cost)
     gap = abs(c1 - c1_cpu) / max(c1_cpu, 1e-30)
     dp = float((out.imu.p.cpu() - out_cpu.imu.p).abs().max())
     print(f"[10] one tick's problem, card vs CPU plain path: final cost "
           f"{c1:.6g} / {c1_cpu:.6g} (rel gap {gap:.2e}, bound {COST_RTOL}), "
           f"max|dp| {dp:.2e} m (bound {DP_TOL}), accepted steps "
-          f"{int(diag.iterations)} / {int(diag_cpu.iterations)}", flush=True)
+          f"{int(diag.iterations)} / {int(diag_cpu.iterations)}; the CPU "
+          f"solve {t_cpu:.1f} s", flush=True)
     if not (gap <= COST_RTOL and dp <= DP_TOL):
         raise RuntimeError("session tick on the card disagrees with the CPU "
                            "plain path")
@@ -1356,52 +1394,79 @@ def _overlap_s(span, intervals):
                for a, b in intervals)
 
 
-def run_mapper(card="", device="cuda", duration_s=MAPPER_S):
-    """Phase 11: the LIO LocalMapper of configs/lio.yaml (SLAM
-    initialization in LIDAR mode, lidar odometry through the JSON tier's
-    scan-to-map strategy and crop boxes, gravity alignment, inertial
-    odometry, the default async tick) fed pipeline/sim_session's events,
-    every scan the vendored VLP-16 scan seen from that scan's lidar pose at
-    16 × 1800. K2 runs in every registration, K1 in every LM step of every
-    solve (the worker's), the ignition's included. Returns the launch
-    counts. ``device="cpu"`` (and a shorter ``duration_s``) rehearses the
-    phase off the card: no profiler, no kernel comparison."""
+def _mapper_config(mode):
+    """LocalMapperConfig.from_yaml of the mode's pipeline YAML, everything
+    as it stands but the calibration: pipeline/sim_session's rig (its lidar
+    extrinsic, and its camera and camera extrinsic where the mode has a
+    camera)."""
+    from beam_slam_tpu_torch.pipeline import sim_session as tss
+    from beam_slam_tpu_torch.pipeline.config import LocalMapperConfig
+    cfg = LocalMapperConfig.from_yaml(
+        str(ROOT / "configs" / MAPPER_YAML[mode]))
+    cal = dict(q_baselink_lidar=tss.Q_BL, p_baselink_lidar=tss.P_BL)
+    if mode != "LIO":
+        cal.update(camera=tss.CAM, q_baselink_cam=tss.Q_BC,
+                   p_baselink_cam=tss.P_BC, camera_hz=CAM_HZ)
+    cfg.calibration = dataclasses.replace(cfg.calibration, **cal)
+    return cfg
+
+
+def run_mapper(card="", device="cuda", duration_s=MAPPER_S, mode="LIO",
+               tag="11"):
+    """Phases 11, 12a and 12c: the LocalMapper of the mode's pipeline YAML
+    (configs/lio.yaml, lvio.yaml or vio.yaml as they stand, with the sim's
+    rig; the default async tick) fed pipeline/sim_session's events, every
+    LIO scan the vendored VLP-16 scan seen from that scan's lidar pose at
+    16 × 1800 (LVIO's: the session's own structured 16 × 504 scene), the
+    camera's tracked landmarks at 20 Hz. LIO and LVIO run SLAM
+    initialization in LIDAR mode, lidar odometry (K2 in every
+    registration), gravity alignment and inertial odometry; LVIO and VIO
+    add visual odometry; VIO ignites from the camera's SfM path (VISUAL)
+    after VIO_INIT_M of path. K1 runs in every LM step of every solve (the
+    worker's), the ignition's included. Returns the launch counts.
+    ``device="cpu"`` (and a shorter ``duration_s``) rehearses the phase off
+    the card: no profiler, no kernel comparison."""
     from beam_slam_tpu_torch import device as tdev
     from beam_slam_tpu_torch.core import lie_np
     from beam_slam_tpu_torch.ops import cholesky as chol
     from beam_slam_tpu_torch.ops import knn
     from beam_slam_tpu_torch.pipeline import sim_session as tss
-    from beam_slam_tpu_torch.pipeline.config import LocalMapperConfig
     from beam_slam_tpu_torch.pipeline.local_mapper import LocalMapper
     from beam_slam_tpu_torch.solver import gauss_newton as gn
+    from beam_slam_tpu_torch.solver import smoother as tsm
     from beam_slam_tpu_torch.utils.evaluation import ate_rmse
 
     cuda = device == "cuda"
     dev = None if cuda else device   # entry points: None is the card
+    lidar, camera = mode in ("LIO", "LVIO"), mode in ("LVIO", "VIO")
 
     def main_sync():   # the caller's stream only: the worker's runs on
         if cuda:
             torch.cuda.current_stream().synchronize()
 
-    cfg = LocalMapperConfig.from_yaml(str(ROOT / "configs" / LIO_YAML))
-    cfg.calibration = dataclasses.replace(
-        cfg.calibration, q_baselink_lidar=tss.Q_BL,
-        p_baselink_lidar=tss.P_BL)
+    cfg = _mapper_config(mode)
+    if mode == "VIO":
+        cfg.init.min_trajectory_length_m = VIO_INIT_M
     traj, events, _ = tss.generate_session_events(
-        mode="LIO", duration_s=duration_s, imu_hz=IMU_RATE,
+        mode=mode, duration_s=duration_s, imu_hz=IMU_RATE, cam_hz=CAM_HZ,
         lidar_hz=MAPPER_LIDAR_HZ, seed=MAPPER_SEED, device=dev)
     scan_t = [ev[1] for ev in events if ev[0] == "scan"]
-    gt = traj.sample(torch.tensor(scan_t, dtype=torch.float32,
+    sensor_t = sorted({ev[1] for ev in events if ev[0] in ("scan", "pose")}
+                      | {ev[1].stamp for ev in events if ev[0] == "cam"})
+    gt = traj.sample(torch.tensor(sensor_t, dtype=torch.float32,
                                   device=traj.device))
     gt_q, gt_p = tdev.to_numpy(gt.q, gt.p)
-    q_wl = lie_np.quat_mul(gt_q, tss.Q_BL[None])
-    p_wl = gt_p + lie_np.quat_rotate(gt_q, tss.P_BL[None])
-    cloud = _load_scan()
-    grids = {t: _observed_grid(cloud, q_wl[i], p_wl[i], dev)
-             for i, t in enumerate(scan_t)}
-    gt_at = {t: (gt_q[i], gt_p[i]) for i, t in enumerate(scan_t)}
+    gt_at = {t: (gt_q[i], gt_p[i]) for i, t in enumerate(sensor_t)}
+    grids = {ev[1]: ev[2] for ev in events if ev[0] == "scan"}
+    vendored = mode == "LIO"
+    if vendored:
+        cloud = _load_scan()
+        for t in scan_t:
+            q_wl = lie_np.quat_mul(gt_at[t][0], tss.Q_BL)
+            p_wl = gt_at[t][1] + lie_np.quat_rotate(gt_at[t][0], tss.P_BL)
+            grids[t] = _observed_grid(cloud, q_wl, p_wl, dev)
     frames, cur = [], []
-    for ev in events:   # one frame: its IMU samples, its scan, its tick
+    for ev in events:   # one frame: its IMU samples, sensors and tick
         cur.append(ev)
         if ev[0] == "tick":
             frames.append(cur)
@@ -1422,6 +1487,15 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S):
                              k1=chol.cholesky_solve_batched.launches))
         return diag
     sm._harvest = counted_harvest
+    # the problem of every dispatched solve, as the worker gets it: the last
+    # one is held card vs CPU after the session
+    problems, job_cls = [], tsm._AsyncSolve
+
+    class RecordedSolve(job_cls):
+        def __init__(self, window, families, losses, options, *rest):
+            problems[:] = [(window, families, losses, options)]
+            super().__init__(window, families, losses, options, *rest)
+    tsm._AsyncSolve = RecordedSolve
 
     # host waits by thread: the sync debug mode's warnings (reads of a
     # device value) and the event waits of HostCopy
@@ -1452,10 +1526,26 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S):
         dispatched[0] = (sm.current_stamps()[-1]
                          if sm._inflight is not None else None)
 
+    def on_event(ev):
+        """Feed one sensor event; its wall ms (the caller's stream synced)
+        for the scans and camera frames, and whether it made a keyframe."""
+        kind = ev[0]
+        if kind == "imu":
+            mapper.on_imu(ev[1], ev[2], ev[3])
+            return None, False
+        if kind == "pose":
+            mapper.on_pose(ev[1], ev[2], ev[3])
+            return None, False
+        t0 = time.perf_counter()
+        kf = (mapper.on_scan(ev[1], grids[ev[1]]) if kind == "scan"
+              else mapper.on_camera_measurement(ev[1]))
+        main_sync()
+        return 1e3 * (time.perf_counter() - t0), kf
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prof, prof_wall = None, None
-    rows, est, ign, n_harvests = [], {}, None, 0
+    rows, est, ign, n_harvests, vo_kf = [], {}, None, 0, 0
     chol.cholesky_solve_batched.launches = 0
     knn.knn_topk.launches = 0
     tdev.HostCopy.numpy = counted_numpy
@@ -1476,27 +1566,27 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S):
                 s0 = dict(syncs)
                 k2_0 = knn.knn_topk.launches
                 t0 = time.perf_counter()
+                ms = {}
                 for ev in frame[:-1]:
-                    if ev[0] == "imu":
-                        mapper.on_imu(ev[1], ev[2], ev[3])
-                    else:
-                        t_scan = time.perf_counter()
-                        mapper.on_scan(ev[1], grids[ev[1]])
-                        main_sync()
-                        t1 = time.perf_counter()
-                t2 = time.perf_counter()
+                    ms_ev, kf = on_event(ev)
+                    if ms_ev is not None:
+                        ms[ev[0]] = ms_ev
+                        vo_kf += int(was and ev[0] == "cam" and kf)
+                        if not was and mapper.initialized and ign is None:
+                            ign = dict(kind=ev[0], ms=ms_ev,
+                                       wall=time.perf_counter() - t_run)
+                t1 = time.perf_counter()
                 mapper.tick()
                 main_sync()
                 t3 = time.perf_counter()
-                if not was and mapper.initialized:
-                    ign = dict(stamp=mapper.init.result["stamp"],
-                               wall=t1 - t_run, scan_ms=1e3 * (t1 - t_scan),
+                if ign is not None and "frames" not in ign:
+                    ign.update(stamp=mapper.init.result["stamp"],
                                k1=chol.cholesky_solve_batched.launches,
                                k2=knn.knn_topk.launches, frames=i + 1)
                 if was:
                     rows.append(dict(
-                        ingest=(t0, t1), scan_ms=1e3 * (t1 - t_scan),
-                        tick_ms=1e3 * (t3 - t2),
+                        ingest=(t0, t1), scan_ms=ms.get("scan"),
+                        cam_ms=ms.get("cam"), tick_ms=1e3 * (t3 - t1),
                         k2=knn.knn_topk.launches - k2_0,
                         main_syncs=syncs[True] - s0.get(True, 0),
                         worker_syncs=syncs[False] - s0.get(False, 0)))
@@ -1517,14 +1607,15 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S):
                 torch.cuda.set_sync_debug_mode(0)
             tdev.HostCopy.numpy = numpy_fn
             sm._harvest = harvest_fn
+            tsm._AsyncSolve = job_cls
     wall = time.perf_counter() - t_run
     launches = dict(k1=chol.cholesky_solve_batched.launches,
                     k2=knn.knn_topk.launches)
 
     # checks
     if ign is None or not mapper.initialized:
-        raise RuntimeError("mapper: never initialized")
-    # the mapper's world frame is its first scan's, turned to gravity: hold
+        raise RuntimeError(f"[{tag}] the mapper never initialized")
+    # the mapper's world frame is its first pose's, turned to gravity: hold
     # the window against ground truth after the rigid transform that fits
     # the window's poses best (the chordal mean of the rotation offsets,
     # then the translation of the centroids)
@@ -1551,32 +1642,58 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S):
     jobs = [id(h["job"]) for h in harvests]   # each job is held: ids unique
     bad = [h for h in harvests
            if not (np.isfinite(h["c1"]) and h["c1"] <= h["c0"])]
-    print(f"[11] LIO LocalMapper, configs/lio.yaml ({cfg.max_states} "
-          f"states, lag {cfg.lag_duration} s, LM <= {cfg.max_iterations} "
-          f"steps with early exit, async tick, registration "
-          f"{type(mapper.lo.registration).__name__}, "
-          f"{len(mapper.lo.input_filters)} input filters), {duration_s} s "
-          f"of events at {IMU_RATE:.0f} Hz IMU / {MAPPER_LIDAR_HZ:.0f} Hz "
-          f"lidar: ignition at {ign['stamp']} s after {ign['frames']} scans "
-          f"({ign['wall']:.1f} s of wall, the igniting scan "
-          f"{ign['scan_ms']:.1f} ms); after the flush {len(stamps)} states, "
+    n_lm, n_reproj = int(sm.lm_active.sum()), int(sm.arena_reproj.active.sum())
+    n_rel = int(sm.arena_rel.active.sum())
+    reg = type(mapper.lo.registration).__name__ if lidar else "none"
+    unscaled = (", not held without lidar: the scale is the SfM path's "
+                "times the inertial alignment's")
+    sensors = " / ".join(
+        [f"{IMU_RATE:.0f} Hz IMU"]
+        + ([f"{CAM_HZ:.0f} Hz camera"] if camera else [])
+        + ([f"{MAPPER_LIDAR_HZ:.0f} Hz lidar"] if lidar else []))
+    scan_src = (f"the vendored scan at {N_RINGS} × {WIDTH}"
+                if vendored else "the session's 16 × 504 scene")
+    print(f"[{tag}] {mode} LocalMapper, configs/{MAPPER_YAML[mode]} "
+          f"({cfg.max_states} states, lag {cfg.lag_duration} s, LM <= "
+          f"{cfg.max_iterations} steps with early exit, async tick, "
+          f"{cfg.init.mode} initialization at "
+          f"{cfg.init.min_trajectory_length_m} m, registration {reg}, "
+          f"{len(mapper.lo.input_filters) if lidar else 0} input filters, "
+          f"{cfg.max_landmarks} landmarks, {sm.arena_reproj.capacity} "
+          f"reprojection factors), {duration_s} s of events at {sensors}"
+          f"{', ' + scan_src if lidar else ''}: "
+          f"ignition at {ign['stamp']} s after {ign['frames']} frames "
+          f"({ign['wall']:.1f} s of wall, the igniting {ign['kind']} "
+          f"{ign['ms']:.1f} ms); after the flush {len(stamps)} states, "
           f"{stamps[0]}–{stamps[-1]} s, worst {worst[0]:.4f} m (at "
           f"{t_worst} s) / {worst[1]:.4f} rad off ground truth "
           f"(after the best rigid fit of the window's poses; bounds "
-          f"{GT_TRANS} / {GT_ROT}); ATE of the newest solved states "
-          f"{ate:.4f} m over {len(est_solved)} solves (bound {GT_TRANS}), "
-          f"of each tick's newest state (one solve stale) {ate_stale:.4f} "
-          f"m; counters {c}; "
+          f"{GT_TRANS} / {GT_ROT}{'' if lidar else unscaled}); "
+          f"ATE of the newest solved states {ate:.4f} m over "
+          f"{len(est_solved)} solves (bound "
+          f"{GT_TRANS if lidar else 'none'}), of each tick's newest state "
+          f"(one solve stale) {ate_stale:.4f} m; counters {c}; "
           f"{len(harvests)} solves harvested of {sm.solve_count} "
-          f"dispatched, {len(bad)} with a final cost above the initial",
+          f"dispatched, {len(bad)} with a final cost above the initial; "
+          f"at the end {n_lm} landmarks, {n_reproj} reprojection and "
+          f"{n_rel} relative-pose factors active; {vo_kf} VO keyframes",
           flush=True)
-    if not (worst[0] < GT_TRANS and worst[1] < GT_ROT and ate < GT_TRANS
-            and c["dropped_transactions"] == 0 and not bad
+    if not (c["dropped_transactions"] == 0 and not bad
             and len(set(jobs)) == len(jobs) == sm.solve_count):
-        raise RuntimeError("mapper session failed its checks")
+        raise RuntimeError(f"[{tag}] mapper session failed its checks")
+    if lidar and not (worst[0] < GT_TRANS and worst[1] < GT_ROT
+                                 and ate < GT_TRANS):
+        raise RuntimeError(f"[{tag}] mapper session off ground truth")
+    if camera and not (vo_kf > 0 and n_lm > 0 and n_reproj > 0):
+        raise RuntimeError(f"[{tag}] visual odometry made no map")
+    if mode == "LVIO" and not n_rel > 0:
+        raise RuntimeError(f"[{tag}] no lidar factor at the end")
+    if mode == "VIO" and not (cfg.init.mode == "VISUAL"
+                              and mapper.init.result["scale"] != 1.0):
+        raise RuntimeError(f"[{tag}] the ignition did not come through SfM")
     if cuda and not (launches["k1"] >= sm.solve_count
                      and launches["k2"] >= 2 * len(scan_t) - 2):
-        raise RuntimeError(f"mapper: launches {launches}")
+        raise RuntimeError(f"[{tag}] launches {launches}")
 
     steps = [b["k1"] - a["k1"] for a, b in zip(harvests, harvests[1:])]
     spans = [h["span"] for h in harvests[1:]]   # after the ignition solve
@@ -1585,49 +1702,55 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S):
     shared = sum(_overlap_s(sp, ingest) for sp in spans)
 
     def spread(xs, fmt=".1f"):
+        xs = [x for x in xs if x is not None] or [0]
         return (f"median {statistics.median(xs):{fmt}} (min {min(xs):{fmt}},"
                 f" max {max(xs):{fmt}})")
-    print(f"[11] per tick after ignition ({len(rows)} frames, {card}): "
-          f"ingestion (on_scan) ms {spread([r['scan_ms'] for r in rows])}; "
-          f"tick() ms {spread([r['tick_ms'] for r in rows])}; solve on the "
-          f"worker ms {spread([1e3 * (b - a) for a, b in spans])}; "
+    print(f"[{tag}] per tick after ignition ({len(rows)} frames, {card}): "
+          + (f"ingestion (on_scan) ms {spread([r['scan_ms'] for r in rows])}"
+             "; " if lidar else "")
+          + (f"on_camera_measurement ms "
+             f"{spread([r['cam_ms'] for r in rows])}; " if camera else "")
+          + f"tick() ms {spread([r['tick_ms'] for r in rows])}; solve on "
+          f"the worker ms {spread([1e3 * (b - a) for a, b in spans])}; "
           f"{100 * shared / max(solve_s, 1e-9):.1f}% of the solve wall "
           f"overlapped ingestion; LM steps run a solve "
-          f"{spread(steps or [0])} (K1 launches), accepted "
+          f"{spread(steps)} (K1 launches), accepted "
           f"{spread([h['accepted'] for h in harvests])}; K2 launches a "
           f"frame {spread([r['k2'] for r in rows])}; host syncs a frame: "
           f"main thread {spread([r['main_syncs'] for r in rows])}, worker "
           f"{spread([r['worker_syncs'] for r in rows])}; during "
           f"initialization K1 {ign['k1']} and K2 {ign['k2']} launches, in "
           f"the whole phase K1 {launches['k1']} and K2 {launches['k2']}; "
-          f"wall {wall:.1f} s for {duration_s} s of sensor time, real-time "
-          f"factor (wall / sensor time) {wall / duration_s:.2f}",
-          flush=True)
+          f"forced marginalizations "
+          f"{c['forced_state_marginalizations']}, landmark evictions "
+          f"{c['landmark_evictions']}; wall {wall:.1f} s for {duration_s} s "
+          f"of sensor time, real-time factor (wall / sensor time) "
+          f"{wall / duration_s:.2f}", flush=True)
     if not cuda:
         return dict(launches=launches)
     on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if any("chol_solve" in e.name for e in on_dev):
         busy = _union_ms([(e.time_range.start, e.time_range.end)
                           for e in on_dev])
-        print(f"[11] the last {MAPPER_PROFILED} frames under the profiler: "
-              f"{len(on_dev)} device ops, device time {busy:.2f} ms of "
-              f"{1e3 * prof_wall:.1f} ms wall (the union over both "
+        print(f"[{tag}] the last {MAPPER_PROFILED} frames under the "
+              f"profiler: {len(on_dev)} device ops, device time {busy:.2f} "
+              f"ms of {1e3 * prof_wall:.1f} ms wall (the union over both "
               f"streams), so the card is idle "
               f"{100 * (1 - busy / (1e3 * prof_wall)):.1f}% ({card})",
               flush=True)
     else:
-        print(f"[11] the last {MAPPER_PROFILED} frames under the profiler: "
-              f"the profiler lost K1's events; device time not measured",
-              flush=True)
+        print(f"[{tag}] the last {MAPPER_PROFILED} frames under the "
+              f"profiler: the profiler saw no K1 event in them; device "
+              f"time not measured", flush=True)
 
-    # K1 on the mapper's own reduced system, against its plain version
-    window, fams, losses = sm._build_device_problem()
+    # K1 on the mapper's own reduced system, against its plain version: the
+    # last problem the mapper dispatched, as the worker got it (unsolved)
+    window, fams, losses, opts = problems[-1]
     H, g, H_ll, g_l, W, _ = gn.assemble_normal_equations(window, fams,
                                                          losses)
     free = torch.cat([window.dense_free_mask(),
                       torch.zeros(1, dtype=torch.bool, device="cuda")])
     lm_free = window.landmarks.active & ~window.landmarks.held
-    opts = sm.cfg.solver
     Hp, gp, _ = gn._damped_reduced_system(
         H, g, free, torch.tensor(opts.initial_lambda, device="cuda"),
         H_ll, g_l, W, lm_free)
@@ -1636,33 +1759,119 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S):
     x_ref, _ = chol.cholesky_solve_batched_reference(Hp, gp)
     torch.cuda.synchronize()
     sys_err = float((x - x_ref).abs().max())
-    # the same tick's problem on the card and on the CPU plain path
+    # that problem solved on the card and on the CPU plain path, with the
+    # mapper's own solver options
     out, diag = gn.solve(window, fams, losses, opts)
+    t_cpu = time.perf_counter()
     out_cpu, diag_cpu = gn.solve(window.to("cpu"),
                                  tuple(f.to("cpu") for f in fams), losses,
                                  opts)
+    t_cpu = time.perf_counter() - t_cpu
     c1, c1_cpu = float(diag.final_cost), float(diag_cpu.final_cost)
     gap = abs(c1 - c1_cpu) / max(c1_cpu, 1e-30)
     dp = float((out.imu.p.cpu() - out_cpu.imu.p).abs().max())
-    print(f"[11] K1 on the mapper's reduced system {tuple(Hp.shape[1:])}: "
-          f"max|x-x_ref|={sys_err:.3e} (bound "
-          f"{X_TOL * float(x_ref.abs().max()):.3e}); its last problem, card "
-          f"vs CPU plain path: final cost {c1:.6g} / {c1_cpu:.6g} (rel gap "
+    print(f"[{tag}] K1 on the mapper's reduced system "
+          f"{tuple(Hp.shape[1:])} ({int(window.landmarks.active.sum())} "
+          f"landmarks eliminated): max|x-x_ref|={sys_err:.3e} (bound "
+          f"{X_TOL * float(x_ref.abs().max()):.3e}); the last problem it "
+          f"dispatched (LM <= {opts.max_iterations} steps, early exit "
+          f"{opts.early_exit}), card vs CPU plain path: cost "
+          f"{float(diag.initial_cost):.6g} -> {c1:.6g} / {c1_cpu:.6g}, "
+          f"accepted steps "
+          f"{int(diag.iterations)} / {int(diag_cpu.iterations)} (rel gap "
           f"{gap:.2e}, bound {COST_RTOL}), max|dp| {dp:.2e} m (bound "
-          f"{DP_TOL})", flush=True)
+          f"{DP_TOL}); the CPU solve {t_cpu:.1f} s", flush=True)
     if Hp.shape[1:] != (1024, 1024) or not sys_err <= X_TOL * float(
             x_ref.abs().max()):
-        raise RuntimeError("K1 on the mapper's reduced system disagrees")
+        raise RuntimeError(f"[{tag}] K1 on the mapper's reduced system "
+                           f"disagrees")
     if not (gap <= COST_RTOL and dp <= DP_TOL):
-        raise RuntimeError("the mapper's problem on the card disagrees with "
-                           "the CPU plain path")
+        raise RuntimeError(f"[{tag}] the mapper's problem on the card "
+                           f"disagrees with the CPU plain path")
     return dict(launches=launches)
+
+
+def _texture(rng, H, W, n_blobs):
+    """tests/test_torch_vision.py's blob texture at a camera's size."""
+    img = np.zeros((H, W), np.float32)
+    yy, xx = np.mgrid[0:H, 0:W]
+    for y, x, a in zip(rng.uniform(10, H - 10, n_blobs),
+                       rng.uniform(10, W - 10, n_blobs),
+                       rng.uniform(60, 200, n_blobs)):
+        img += a * np.exp(-((yy - y) ** 2 + (xx - x) ** 2) / (2 * 2.5 ** 2))
+    return np.clip(img, 0, 255).astype(np.float32)
+
+
+def run_front_end(card="", device="cuda"):
+    """Phase 12b: the feature tracker of configs/lvio.yaml's vo/ JSON tier
+    (FAST-9 at threshold 20 with a 32-px grid, LK 21 px × 4 levels × 30
+    steps) on the card and on the CPU, over a seeded integer-valued
+    640 × 480 texture moving by known subpixel steps: detection equal, the
+    same ids, the tracks within FRONT_END_PX; ms per process_image.
+    ``device="cpu"`` rehearses the phase off the card (CPU against CPU)."""
+    from scipy import ndimage
+
+    from beam_slam_tpu_torch.pipeline import sim_session as tss
+    from beam_slam_tpu_torch.vision import detector as det
+    cfg = _mapper_config("LVIO")
+    trackers = [cfg.build_tracker(tss.CAM, device=d)
+                for d in (None if device == "cuda" else device, "cpu")]
+    base = _texture(np.random.default_rng(FRONT_END_SEED), tss.CAM.height,
+                    tss.CAM.width, 600)
+    frames = [np.round(ndimage.shift(base, (k * FRONT_END_STEP[0],
+                                            k * FRONT_END_STEP[1]),
+                                     order=1, mode="nearest"))
+              .astype(np.float32) for k in range(FRONT_END_FRAMES)]
+    outs = [det.detect(torch.as_tensor(frames[0], device=d),
+                       trackers[0].fast_cfg) for d in (device, "cpu")]
+    for a, b in zip(*outs):
+        if not torch.equal(a.cpu(), b):
+            raise RuntimeError("[12b] FAST detection differs on the card")
+    worst, ms, n_ids = 0.0, [], []
+    for k, img in enumerate(frames):
+        t0 = time.perf_counter()
+        mc = trackers[0].process_image(0.05 * k, img)   # returns host data
+        ms.append(1e3 * (time.perf_counter() - t0))
+        mp = trackers[1].process_image(0.05 * k, img)
+        if not np.array_equal(mc.ids, mp.ids):
+            raise RuntimeError(f"[12b] frame {k}: the ids differ")
+        if len(mc.ids):
+            worst = max(worst, float(np.abs(mc.pixels - mp.pixels).max()))
+        n_ids.append(len(mc.ids))
+    print(f"[12b] the feature tracker of configs/lvio.yaml "
+          f"(FAST threshold {trackers[0].fast_cfg.threshold}, LK "
+          f"{trackers[0].lk_cfg.window} px × {trackers[0].lk_cfg.levels} "
+          f"levels × {trackers[0].lk_cfg.iterations} steps) on "
+          f"{FRONT_END_FRAMES} frames of {tss.CAM.width}×{tss.CAM.height}, "
+          f"card vs CPU: detection equal, ids equal ({min(n_ids)}–"
+          f"{max(n_ids)} features a frame), max|Δpixel| {worst:.2e} px "
+          f"(bound {FRONT_END_PX}); process_image on the card ms "
+          f"median {statistics.median(ms[1:]):.1f} (min {min(ms[1:]):.1f}, "
+          f"max {max(ms[1:]):.1f}; the first, with the detection only, "
+          f"{ms[0]:.1f}) ({card})", flush=True)
+    if not worst <= FRONT_END_PX:
+        raise RuntimeError(f"[12b] tracks differ by {worst} px")
+
+
+def run_vision(card=""):
+    """Phase 12: the LVIO mapper (12a), the image front end (12b) and VIO
+    with VISUAL initialization (12c). Returns the launch counts."""
+    lvio = run_mapper(card, duration_s=LVIO_S, mode="LVIO", tag="12a")
+    run_front_end(card)
+    vio = run_mapper(card, duration_s=VIO_S, mode="VIO", tag="12c")
+    return dict(launches={k: lvio["launches"][k] + vio["launches"][k]
+                          for k in ("k1", "k2")})
 
 
 def main(only: str = "") -> int:
     # ---- 1. require CUDA
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; none is visible")
+    t_main = time.perf_counter()
+
+    def lap(phases):   # the script's wall so far, for its time limit
+        print(f"[time] phases {phases} done at "
+              f"{time.perf_counter() - t_main:.1f} s", flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1683,7 +1892,8 @@ def main(only: str = "") -> int:
     libs = {"bst_cholesky": chol, "bst_knn": knn, "bst_moments": moments}
     if only:
         wanted = dict(k1=(chol,), k2=(knn,), k3=(moments,),
-                      smoother=(chol, knn), mapper=(chol, knn))[only]
+                      smoother=(chol, knn), mapper=(chol, knn),
+                      lvio=(chol, knn))[only.split("-")[0]]
         libs = {name: mod for name, mod in libs.items() if mod in wanted}
     built = nvcc_build.build_many([(name, mod.SOURCES)
                                    for name, mod in libs.items()])
@@ -1703,6 +1913,10 @@ def main(only: str = "") -> int:
         return 0
     if only == "mapper":  # the LIO LocalMapper alone
         run_mapper(card)
+        print(card)
+        return 0
+    if only == "lvio":  # the vision phases alone
+        run_vision(card)
         print(card)
         return 0
     if only in ("k2", "k3"):  # alone, on a map built at ground-truth poses
@@ -1812,14 +2026,21 @@ def main(only: str = "") -> int:
     kc = kernel_checks(lio, card=card)
     run_pipelined(lio, card=card)
     k3_launches = run_radius(lio)
+    lap("1-9")
 
     # ---- 10. the LIO+IMU session of the fixed-lag smoother (K1, K2)
     sess = run_session(card)
+    lap("10")
 
     # ---- 11. the LIO LocalMapper of configs/lio.yaml (K1, K2)
     mapper = run_mapper(card)
+    lap("11")
 
-    # ---- 12. records (K2 at the surface shape, the larger of the two)
+    # ---- 12. the LVIO and VIO LocalMappers, the image front end (K1, K2)
+    vision = run_vision(card)
+    lap("12")
+
+    # ---- 13. records (K2 at the surface shape, the larger of the two)
     kb1, kb1_by = _chol_bound(1, 640)
     k2s = kc["k2"]["times"]["surfaces"]
     k3s = kc["k3"]["times"]["surfaces"]
@@ -1828,7 +2049,8 @@ def main(only: str = "") -> int:
         "source": "beam_slam_tpu_torch/csrc/cholesky.cu",
         "replaces": "beam_slam_tpu/ops/pallas_cholesky.py:226",
         "launches": (launches_flagship + launches_batched
-                     + sess["launches"]["k1"] + mapper["launches"]["k1"]),
+                     + sess["launches"]["k1"] + mapper["launches"]["k1"]
+                     + vision["launches"]["k1"]),
         "max_abs_err": max_err, "ms": times[1][0], "plain_ms": times[1][1],
         "bound_ms": kb1, "bound_by": kb1_by,
         # the plain version is the library pair cholesky_ex + cholesky_solve
@@ -1838,7 +2060,7 @@ def main(only: str = "") -> int:
         "source": "beam_slam_tpu_torch/csrc/knn.cu",
         "replaces": "beam_slam_tpu/ops/pallas_knn.py:110",
         "launches": (lio["launches"] + sess["launches"]["k2"]
-                     + mapper["launches"]["k2"]),
+                     + mapper["launches"]["k2"] + vision["launches"]["k2"]),
         "max_abs_err": kc["k2"]["err"],
         "ms": k2s["ms"], "plain_ms": k2s["plain"],
         "bound_ms": k2s["bound"][0], "bound_by": k2s["bound"][1],
@@ -1864,7 +2086,7 @@ if __name__ == "__main__":
         knn_counts((sys.argv[2:] or ["cuda"])[0])
         sys.exit(0)
     if sys.argv[1:] not in ([], ["k1"], ["k2"], ["k3"], ["smoother"],
-                            ["mapper"]):
+                            ["mapper"], ["lvio"]):
         sys.exit(f"usage: {sys.argv[0]} [k1 | k2 | k3 | smoother | mapper | "
-                 f"knn-counts [cpu|cuda]]")
+                 f"lvio | knn-counts [cpu|cuda]]")
     sys.exit(main(only=(sys.argv[1:] or [""])[0]))

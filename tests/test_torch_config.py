@@ -135,10 +135,22 @@ def test_calibration_tier_matches_reference():
     _assert_same(cj, ct, "calibration")
 
 
-def test_tracker_waits_for_the_vision_slice():
-    cfg = tcfg.LocalMapperConfig.from_yaml(str(CONFIGS / "vio.yaml"))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        cfg.build_tracker(tcam.PinholeRadtan(400.0, 400.0, 320.0, 240.0))
+@pytest.mark.parametrize("yaml", ["vio.yaml", "lvio.yaml"])
+def test_tracker_config_matches_reference(yaml):
+    """build_tracker reads the vo/ JSON tier (fastssc_detector.json,
+    tracker.json) as the reference does: the same FastConfig, LKConfig and
+    min_features, on the device asked for."""
+    cams = (jcam.PinholeRadtan(400.0, 400.0, 320.0, 240.0),
+            tcam.PinholeRadtan(400.0, 400.0, 320.0, 240.0))
+    tj = jcfg.LocalMapperConfig.from_yaml(str(CONFIGS / yaml)) \
+        .build_tracker(cams[0])
+    tt = tcfg.LocalMapperConfig.from_yaml(str(CONFIGS / yaml)) \
+        .build_tracker(cams[1], device="cpu")
+    assert tuple(tt.fast_cfg) == tuple(tj.fast_cfg)
+    assert tuple(tt.lk_cfg) == tuple(tj.lk_cfg)
+    assert tt.min_features == tj.min_features == 150
+    assert tt.lk_cfg.window == 21 and tt.lk_cfg.levels == 4
+    assert tt.device == torch.device("cpu")
 
 
 # ---------------------------------------------------------------------------

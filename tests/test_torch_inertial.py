@@ -22,6 +22,8 @@ JAX's XLA scan), so 1e-4 on biases and gravity and 1e-3 on velocities.
 
 import dataclasses
 
+from pathlib import Path
+
 import numpy as np
 import numpy.testing as npt
 import pytest
@@ -238,6 +240,24 @@ def test_extrinsics_lookup_matches_reference(tmp_path):
         _close(pa, pb, 1e-6, "p")
 
 
+def _vision_entry(name):
+    """The vision slice's entry points: the feature tracker, and the LVIO
+    mapper of configs/lvio.yaml with the sim's rig."""
+    from beam_slam_tpu_torch.models.visual_feature_tracker import \
+        VisualFeatureTracker
+    from beam_slam_tpu_torch.pipeline import config as tcfg
+    from beam_slam_tpu_torch.pipeline import sim_session as tss
+    from beam_slam_tpu_torch.pipeline.local_mapper import LocalMapper
+    if name == "tracker":
+        return VisualFeatureTracker(tss.CAM)
+    cfg = tcfg.LocalMapperConfig.from_yaml(str(
+        Path(__file__).resolve().parents[1] / "configs" / "lvio.yaml"))
+    cfg.calibration = tcfg.CalibrationConfig(
+        camera=tss.CAM, q_baselink_cam=tss.Q_BC, p_baselink_cam=tss.P_BC,
+        q_baselink_lidar=tss.Q_BL, p_baselink_lidar=tss.P_BL)
+    return LocalMapper(cfg)
+
+
 ENTRY_POINTS = {
     "FixedLagSmoother": lambda: tsm.FixedLagSmoother(tsm.SmootherConfig()),
     "ImuPreintegrationModel": lambda: tio.ImuPreintegrationModel(),
@@ -245,6 +265,8 @@ ENTRY_POINTS = {
         tsm.FixedLagSmoother(tsm.SmootherConfig(), device="cpu")),
     "imu_measurements": lambda: tsim.imu_measurements(
         tsim.AnalyticTrajectory(device="cpu"), 0.0, 0.1, RATE),
+    "VisualFeatureTracker": lambda: _vision_entry("tracker"),
+    "LocalMapper(LVIO)": lambda: _vision_entry("lvio"),
     "estimate_parameters": lambda: tal.estimate_parameters(
         np.arange(3.0), np.tile([1.0, 0, 0, 0], (3, 1)), np.zeros((3, 3)),
         np.arange(0.0, 2.0, 0.01), np.zeros((200, 3)), np.zeros((200, 3)),

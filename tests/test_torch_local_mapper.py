@@ -1,7 +1,8 @@
 """Parity of the port's LIO LocalMapper (beam_slam_tpu_torch.pipeline) with
 the JAX reference: the sync oracle session here, the async tick's session
 in tests/test_torch_local_mapper_async.py, and the small LocalMapper,
-SLAMInitialization and sim-session cases.
+SLAMInitialization and sim-session cases (the VIO and LVIO mappers'
+construction and the camera and pose streams among them).
 
 The session: the reference's ``generate_session_events`` in LIO mode
 (analytic trajectory, the sim's 16 × 504 structured scene, 200 Hz IMU), the
@@ -17,6 +18,7 @@ another order); the ignition at the same stamp and its state within
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,6 +37,7 @@ from beam_slam_tpu_torch.core import lie_np
 from beam_slam_tpu_torch.lidar import scan_registration as tsr
 from beam_slam_tpu_torch.models import lidar_odometry as tlo
 from beam_slam_tpu_torch.models import slam_initialization as tsi
+from beam_slam_tpu_torch.models import visual_odometry as tvo
 from beam_slam_tpu_torch.models.inertial_odometry import \
     ImuParams as TImuParams
 from beam_slam_tpu_torch.pipeline import config as tcfg
@@ -53,6 +56,7 @@ POS_TOL, ROT_TOL = 2e-3, 2e-3          # window states, every tick
 IGN_POS_TOL, IGN_ROT_TOL = 1e-3, 1e-3  # the ignition state
 ATE_BOUND = 0.05
 ARENAS = bridge.ARENAS
+CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 
 
 def _config(cfg_mod, init_mod, async_solve: bool):
@@ -221,11 +225,66 @@ def test_frameinit_ignition_matches_reference():
 
 
 @pytest.mark.parametrize("mode", ["VIO", "LVIO"])
-def test_vision_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tlm.LocalMapper(tcfg.LocalMapperConfig(mode=mode), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tss.generate_session_events(mode=mode, duration_s=1.0, device="cpu")
+def test_vision_mapper_builds_like_reference(mode):
+    """LocalMapper of configs/{vio,lvio}.yaml with the calibration tier: the
+    reference's extrinsics (the camera's, and the lidar's in LVIO), arena
+    capacities, initialization mode, registration strategy and tracker."""
+    mappers = []
+    for cfg_mod, lm_mod, dev in ((jcfg, jlm, {}), (tcfg, tlm,
+                                                   {"device": "cpu"})):
+        cfg = cfg_mod.LocalMapperConfig.from_yaml(
+            str(CONFIGS / f"{mode.lower()}.yaml"))
+        cfg.calibration = cfg_mod.CalibrationConfig.from_yaml(
+            str(CONFIGS / "calibration_params.yaml"),
+            str(CONFIGS / "calibrations"))
+        mappers.append(lm_mod.LocalMapper(cfg, **dev))
+    mj, mt = mappers
+    smj, smt = mj.smoother, mt.smoother
+    assert smt.ext_slot_of_name == smj.ext_slot_of_name
+    assert ("cam0" in smt.ext_slot_of_name
+            and ("lidar" in smt.ext_slot_of_name) == (mode == "LVIO"))
+    np.testing.assert_allclose(smt.ext_q, np.asarray(smj.ext_q), atol=1e-7)
+    np.testing.assert_allclose(smt.ext_p, np.asarray(smj.ext_p), atol=1e-7)
+    for n in ARENAS:
+        assert getattr(smt, n).capacity == getattr(smj, n).capacity, n
+    assert (smt.cfg.max_landmarks, smt.cfg.max_reprojection_factors) == \
+        (smj.cfg.max_landmarks, smj.cfg.max_reprojection_factors)
+    assert mt.init.params.mode == mj.init.params.mode
+    assert (mt.lo is None) == (mj.lo is None) == (mode == "VIO")
+    if mt.lo is not None:
+        assert type(mt.lo.registration).__name__ == \
+            type(mj.lo.registration).__name__ == \
+            "PipelinedScanToMapRegistration"
+    assert tuple(mt.tracker.fast_cfg) == tuple(mj.tracker.fast_cfg)
+    assert tuple(mt.tracker.lk_cfg) == tuple(mj.tracker.lk_cfg)
+    assert mt.vo.params == tvo.VOParams(**dataclasses.asdict(mj.vo.params))
+
+
+@pytest.mark.parametrize("mode", ["VIO", "LVIO"])
+def test_vision_session_events_match_reference(mode):
+    """The camera and pose streams of generate_session_events: the same
+    events in the same order, the same ids, pixels within 1e-3 px (a few
+    float32 rounding steps of a pixel, from the trajectory's float32 poses
+    sampled by each package), poses within 1e-6."""
+    _, ev_j, n_j = jss.generate_session_events(mode=mode, duration_s=0.6,
+                                               lidar_hz=LIDAR_HZ)
+    _, ev_t, n_t = tss.generate_session_events(mode=mode, duration_s=0.6,
+                                               lidar_hz=LIDAR_HZ,
+                                               device="cpu")
+    assert n_j == n_t
+    assert [e[0] for e in ev_j] == [e[0] for e in ev_t]
+    kinds = {e[0] for e in ev_t}
+    assert "cam" in kinds and ("pose" in kinds) == (mode == "VIO")
+    for a, b in zip(ev_j, ev_t):
+        if a[0] == "cam":
+            a, b = a[1], b[1]
+            assert a.stamp == b.stamp and len(a.ids) >= 20
+            np.testing.assert_array_equal(b.ids, a.ids)
+            np.testing.assert_allclose(b.pixels, a.pixels, atol=1e-3)
+        elif a[0] == "pose":
+            assert a[1] == b[1]
+            np.testing.assert_allclose(b[2], a[2], atol=1e-6)
+            np.testing.assert_allclose(b[3], a[3], atol=1e-6)
 
 
 def test_entry_points_need_a_card_unless_asked(monkeypatch):
