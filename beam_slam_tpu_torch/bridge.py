@@ -189,3 +189,52 @@ def smoother_from_numpy(config: SmootherConfig,
                                          f" expected {arena.fields[k].shape}")
             setattr(arena, name, val)
     return sm
+
+
+def submap_from_numpy(fields: Mapping[str, object], device):
+    """The JAX package's Submap as plain values → the port's Submap on
+    ``device``. ``fields``: ``stamp``, ``q``, ``p``, ``q_initial``,
+    ``p_initial``, ``updates``; ``lidar_keyframes``, a list of dicts of
+    ``stamp``, ``q``, ``p`` and ``features`` (a FeatureCloud as numpy, see
+    :func:`feature_cloud_from_numpy`); ``camera_keyframes``, a list of dicts
+    of ``stamp``, ``q``, ``p``, ``ids``, ``pixels``; ``subframe_poses``
+    (stamp → (q, p)); ``descriptor`` (or None); ``landmarks`` (id →
+    position) and ``landmark_words`` (id → word)."""
+    from beam_slam_tpu_torch.global_mapping.submap import (CameraKeyframe,
+                                                           LidarKeyframe,
+                                                           Submap)
+    f32 = lambda a: np.asarray(a, np.float32).copy()  # noqa: E731
+    sm = Submap(float(fields["stamp"]), f32(fields["q"]), f32(fields["p"]),
+                device=device)
+    sm.q_initial, sm.p_initial = f32(fields["q_initial"]), \
+        f32(fields["p_initial"])
+    sm.updates = int(fields["updates"])
+    for kf in fields["lidar_keyframes"]:
+        sm.lidar_keyframes.append(LidarKeyframe(
+            float(kf["stamp"]), f32(kf["q"]), f32(kf["p"]),
+            feature_cloud_from_numpy(kf["features"], sm.device)))
+    for ck in fields["camera_keyframes"]:
+        sm.camera_keyframes.append(CameraKeyframe(
+            float(ck["stamp"]), f32(ck["q"]), f32(ck["p"]),
+            np.asarray(ck["ids"]).copy(), f32(ck["pixels"])))
+    sm.subframe_poses = {float(t): (f32(q), f32(p))
+                         for t, (q, p) in fields["subframe_poses"].items()}
+    if fields.get("descriptor") is not None:
+        sm.descriptor = f32(fields["descriptor"])
+    sm.landmarks = {int(i): f32(x) for i, x in fields["landmarks"].items()}
+    sm.landmark_words = {int(i): int(w)
+                         for i, w in fields["landmark_words"].items()}
+    return sm
+
+
+def global_map_from_numpy(fields: Mapping[str, object], device):
+    """The JAX package's GlobalMap as plain values → the port's GlobalMap
+    on ``device``, with the default candidate search and refinement of its
+    params (as ``GlobalMap.load`` builds them). ``fields``: ``params`` (the
+    GlobalMapParams fields) and ``submaps``, a list of
+    :func:`submap_from_numpy` dicts."""
+    from beam_slam_tpu_torch.global_mapping.global_map import (
+        GlobalMap, GlobalMapParams)
+    gm = GlobalMap(GlobalMapParams(**dict(fields["params"])), device=device)
+    gm.submaps = [submap_from_numpy(s, gm.device) for s in fields["submaps"]]
+    return gm

@@ -9,9 +9,11 @@ respect to the stacked tangent perturbation, vmapped over the factor axis.
 Residual whitening (sqrt-information) is applied inside the residual.
 
 Residuals and analytic Jacobians are written over arbitrary leading dims, so
-one code path serves a single window (factor axis ``[F]``) and the
+one code path serves a single window (factor axis ``[F]``), the
 shared-topology batch of :mod:`beam_slam_tpu_torch.solver.batched`
-(``[B, F]``, window tensors ``[B, K, ...]``, slots equal across the batch).
+(``[B, F]``, window tensors ``[B, K, ...]``, slots equal across the batch)
+and, with ``per_window``, a batch whose slots differ
+(:mod:`beam_slam_tpu_torch.parallel.sharded`).
 
 Every family of the reference but ``InverseDepthUnaryReprojectionFactors``
 (vision, a later slice) is ported.
@@ -67,10 +69,15 @@ def _gravity_like(v: torch.Tensor) -> torch.Tensor:
 
 
 def _gather_block(window: WindowState, kind: str, idx: torch.Tensor):
-    """Block states at slots ``idx`` [F]; window leaves may carry leading
-    batch dims, which the result keeps ([..., F, width])."""
+    """Block states at slots ``idx``; window leaves may carry leading batch
+    dims, which the result keeps ([..., F, width]). ``idx`` is [F], shared
+    by every batch entry, or carries the leaves' batch dims ([..., F]): one
+    set of slots per window."""
     def g(t):
-        return t.index_select(-2, idx)
+        if idx.dim() == 1:
+            return t.index_select(-2, idx)
+        return torch.gather(t, -2, idx[..., None].expand(
+            idx.shape + t.shape[-1:]))
     if kind == BLOCK_IMU:
         s = window.imu
         return (g(s.q), g(s.p), g(s.v), g(s.bg), g(s.ba))
@@ -88,7 +95,9 @@ def _gather_block(window: WindowState, kind: str, idx: torch.Tensor):
 def _block_active(window: WindowState, kind: str, idx: torch.Tensor):
     src = {BLOCK_IMU: window.imu, BLOCK_EXTRINSIC: window.extrinsics,
            BLOCK_LANDMARK: window.landmarks, BLOCK_MOTION: window.motion}[kind]
-    return src.active.index_select(-1, idx)
+    if idx.dim() == 1:
+        return src.active.index_select(-1, idx)
+    return torch.gather(src.active, -1, idx)
 
 
 def _retract_block(kind: str, state, d):
@@ -163,6 +172,12 @@ class FactorBatch(Struct):
         batch entry (the shared-topology contract); entry 0 stands for all."""
         return self.slots.reshape((-1,) + self.slots.shape[-2:])[0]
 
+    def _slots(self, per_window: bool) -> torch.Tensor:
+        """The slots the assembly reads: the shared ones [F, nb], or with
+        ``per_window`` every window's own ([..., F, nb], a batch whose
+        topologies differ)."""
+        return self.slots if per_window else self.shared_slots
+
     # -- subclass API ------------------------------------------------------
     def params(self) -> Tuple[torch.Tensor, ...]:
         raise NotImplementedError
@@ -185,18 +200,19 @@ class FactorBatch(Struct):
             o += d
         return out
 
-    def _gather(self, window: WindowState):
-        slots = self.shared_slots
-        gathered = tuple(_gather_block(window, k, slots[:, b])
+    def _gather(self, window: WindowState, per_window: bool = False):
+        slots = self._slots(per_window)
+        gathered = tuple(_gather_block(window, k, slots[..., b])
                          for b, k in enumerate(type(self).BLOCKS))
         mask = self.active
         for b, k in enumerate(type(self).BLOCKS):
-            mask = mask & _block_active(window, k, slots[:, b])
+            mask = mask & _block_active(window, k, slots[..., b])
         return gathered, mask
 
-    def residual_only(self, window: WindowState) -> torch.Tensor:
+    def residual_only(self, window: WindowState,
+                      per_window: bool = False) -> torch.Tensor:
         """Masked whitened residuals [..., F, R] without Jacobians."""
-        gathered, mask = self._gather(window)
+        gathered, mask = self._gather(window, per_window)
         r = self.residual(gathered, self.params())
         return r * mask.to(r.dtype)[..., None]
 
@@ -236,7 +252,7 @@ class FactorBatch(Struct):
                 zeros, g_flat, p_flat)
         return (r.reshape(lead + r.shape[1:]), J.reshape(lead + J.shape[1:]))
 
-    def linearize(self, window: WindowState):
+    def linearize(self, window: WindowState, per_window: bool = False):
         """Returns (r [...,F,R], J [...,F,R,Dd], col_idx [F,Dd], mask [...,F],
         lm_slot [F] | None, J_lm [...,F,R,3] | None).
 
@@ -245,12 +261,14 @@ class FactorBatch(Struct):
         the dense local tangent columns (IMU/extrinsic/motion blocks) to
         global dense dof; the landmark block's Jacobian (if any) is returned
         separately for Schur elimination. col_idx and lm_slot come from the
-        shared slots, so they carry no batch dims."""
+        shared slots, so they carry no batch dims; with ``per_window`` they
+        come from every window's own slots and carry its batch dims
+        ([..., F, Dd], [..., F])."""
         cls = type(self)
         blocks = cls.BLOCKS
         Dl = self.local_dof()
         with_lm = self.has_landmark()
-        gathered, mask = self._gather(window)
+        gathered, mask = self._gather(window, per_window)
         params = self.params()
 
         if cls.HAS_ANALYTIC:
@@ -264,11 +282,11 @@ class FactorBatch(Struct):
         r = r * m[..., None]
         J = J * m[..., None, None]
 
-        slots = self.shared_slots
+        slots = self._slots(per_window)
         if with_lm:
             J_lm = J[..., Dl - LANDMARK_DOF:]
             J = J[..., :Dl - LANDMARK_DOF]
-            lm_slot = slots[:, len(blocks) - 1]
+            lm_slot = slots[..., len(blocks) - 1]
             dense_blocks = blocks[:-1]
         else:
             J_lm, lm_slot = None, None
@@ -280,16 +298,16 @@ class FactorBatch(Struct):
         for b, k in enumerate(dense_blocks):
             d = block_dof(k)
             if k == BLOCK_IMU:
-                base = slots[:, b] * IMU_DOF
+                base = slots[..., b] * IMU_DOF
             elif k == BLOCK_MOTION:
                 base = (K_imu * IMU_DOF + E_ext * POSE_DOF
-                        + slots[:, b] * MOTION_DOF)
+                        + slots[..., b] * MOTION_DOF)
             else:  # BLOCK_EXTRINSIC
-                base = K_imu * IMU_DOF + slots[:, b] * POSE_DOF
-            cols.append(base[:, None]
-                        + torch.arange(d, device=slots.device)[None, :])
-        col_idx = (torch.cat(cols, dim=1) if cols else
-                   slots.new_zeros((slots.shape[0], 0)))
+                base = K_imu * IMU_DOF + slots[..., b] * POSE_DOF
+            cols.append(base[..., None]
+                        + torch.arange(d, device=slots.device))
+        col_idx = (torch.cat(cols, dim=-1) if cols else
+                   slots.new_zeros(slots.shape[:-1] + (0,)))
         return r, J, col_idx, mask, lm_slot, J_lm
 
 

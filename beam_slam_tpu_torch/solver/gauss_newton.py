@@ -21,7 +21,9 @@ complement elimination of landmarks (port of
 
 Every function below is batch-polymorphic: window leaves, equations and LM
 scalars may carry the same leading batch dims. The single-window solve has
-none; the shared-topology batched solve (:mod:`.batched`) has ``[B]``.
+none; the shared-topology batched solve (:mod:`.batched`) and the
+mixed-topology one (:mod:`beam_slam_tpu_torch.parallel.sharded`, which
+assembles with ``per_window``) have ``[B]``.
 """
 
 from __future__ import annotations
@@ -78,18 +80,27 @@ def robust_weight(sq_norm: torch.Tensor, loss_scale: Optional[float]):
 
 
 def _scatter_add(target: torch.Tensor, index: torch.Tensor,
-                 values: torch.Tensor) -> None:
+                 values: torch.Tensor, index_lead: int = 0) -> None:
     """target.flatten(over trailing dims)[..., index] += values, in place.
 
-    ``index`` (int64, no batch dims) addresses the trailing ``target.dim() -
-    n_lead`` dims flattened; ``values`` has target's leading batch dims
-    followed by ``index``'s shape."""
-    n_lead = values.dim() - index.dim()
+    ``index`` (int64) addresses the trailing ``target.dim() - n_lead`` dims
+    flattened; ``values`` has target's leading batch dims followed by
+    ``index``'s own shape. ``index`` shared by the batch has no batch dims
+    (``index_lead=0``); one index per window carries the ``index_lead``
+    leading batch dims, and window b's entries go at an offset of b times
+    the window's size in the flat view."""
+    n_lead = values.dim() - index.dim() + index_lead
     nb = 1
     for s in target.shape[:n_lead]:
         nb *= s
-    target.view(nb, -1).index_add_(1, index.reshape(-1),
-                                   values.reshape(nb, -1))
+    if not index_lead:
+        target.view(nb, -1).index_add_(1, index.reshape(-1),
+                                       values.reshape(nb, -1))
+        return
+    per = target.numel() // nb
+    offset = torch.arange(nb, device=index.device)[:, None] * per
+    target.view(-1).index_add_(0, (index.reshape(nb, -1) + offset).reshape(-1),
+                               values.reshape(-1))
 
 
 def _gram(J):
@@ -101,13 +112,16 @@ def _jtr(J, r):
 
 
 def assemble_normal_equations(window: WindowState, families: Sequence,
-                              losses: Tuple[Optional[float], ...]):
+                              losses: Tuple[Optional[float], ...],
+                              per_window: bool = False):
     """Linearize every factor family and scatter-add the normal equations.
 
     Returns (H [...,D+1,D+1], g [...,D+1], H_ll [...,L,3,3], g_l [...,L,3],
     W [...,D+1,L·3], cost [...]). The last dense row/col is a padding
-    ("trash") dof."""
+    ("trash") dof. A batch reads its families' shared slots, or with
+    ``per_window`` each window's own (a batch of mixed topologies)."""
     lead = window.imu.q.shape[:-2]
+    il = len(lead) if per_window else 0
     D = window.num_dense_dof
     L = window.landmarks.capacity
     dtype, dev = window.imu.q.dtype, window.imu.q.device
@@ -119,23 +133,24 @@ def assemble_normal_equations(window: WindowState, families: Sequence,
     k3 = torch.arange(LANDMARK_DOF, device=dev)
 
     for fam, loss in zip(families, losses):
-        r, J, col, _, lm_slot, J_lm = fam.linearize(window)
+        r, J, col, _, lm_slot, J_lm = fam.linearize(window, per_window)
         w, rho = robust_weight(torch.sum(r * r, dim=-1), loss)
         cost = cost + 0.5 * torch.sum(rho, dim=-1)
         sw = torch.sqrt(w)
         r = r * sw[..., None]
         J = J * sw[..., None, None]
-        _scatter_add(g, col, -_jtr(J, r))
-        _scatter_add(H, col[:, :, None] * (D + 1) + col[:, None, :], _gram(J))
+        _scatter_add(g, col, -_jtr(J, r), il)
+        _scatter_add(H, col[..., :, None] * (D + 1) + col[..., None, :],
+                     _gram(J), il)
         if lm_slot is not None:
             J_lm = J_lm * sw[..., None, None]
-            lm_cols = lm_slot[:, None] * LANDMARK_DOF + k3[None, :]   # [F, 3]
-            _scatter_add(H_ll, lm_cols[:, :, None] * LANDMARK_DOF
-                         + k3[None, None, :], _gram(J_lm))
-            _scatter_add(g_l, lm_cols, -_jtr(J_lm, r))
-            _scatter_add(W, col[:, :, None] * (L * LANDMARK_DOF)
-                         + lm_cols[:, None, :],
-                         torch.einsum("...rd,...rc->...dc", J, J_lm))
+            lm_cols = lm_slot[..., None] * LANDMARK_DOF + k3   # [..., F, 3]
+            _scatter_add(H_ll, lm_cols[..., :, None] * LANDMARK_DOF + k3,
+                         _gram(J_lm), il)
+            _scatter_add(g_l, lm_cols, -_jtr(J_lm, r), il)
+            _scatter_add(W, col[..., :, None] * (L * LANDMARK_DOF)
+                         + lm_cols[..., None, :],
+                         torch.einsum("...rd,...rc->...dc", J, J_lm), il)
     return H, g, H_ll, g_l, W, cost
 
 
@@ -145,12 +160,14 @@ assemble_normal_equations_jit = assemble_normal_equations
 
 
 def total_cost(window: WindowState, families: Sequence,
-               losses: Tuple[Optional[float], ...]) -> torch.Tensor:
-    """Robustified cost only (no Jacobians)."""
+               losses: Tuple[Optional[float], ...],
+               per_window: bool = False) -> torch.Tensor:
+    """Robustified cost only (no Jacobians); ``per_window`` as in
+    :func:`assemble_normal_equations`."""
     cost = torch.zeros(window.imu.q.shape[:-2], dtype=window.imu.q.dtype,
                        device=window.imu.q.device)
     for fam, loss in zip(families, losses):
-        r = fam.residual_only(window)
+        r = fam.residual_only(window, per_window)
         _, rho = robust_weight(torch.sum(r * r, dim=-1), loss)
         cost = cost + 0.5 * torch.sum(rho, dim=-1)
     return cost

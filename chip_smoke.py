@@ -14,6 +14,8 @@
     python3 chip_smoke.py lvio   # build K1 and K2, then only phase 12: the
                                  # LVIO and VIO LocalMappers and the image
                                  # front end
+    python3 chip_smoke.py global # build K1 and K2, then only phase 13:
+                                 # global mapping and the map refinement
     python3 chip_smoke.py knn-counts [cpu|cuda]
                                  # K2's schedule (its mirror) at the LIO
                                  # shapes: the insertions each warp runs
@@ -69,7 +71,19 @@ kernel against its plain PyTorch version on the card:
     gravity alignment and inertial odometry, with the same checks as the
     LIO mapper plus the visual map's; the feature tracker of its vo/ JSON
     tier card vs CPU on a moving 640 × 480 texture; and the VIO LocalMapper
-    of configs/vio.yaml, its ignition from the camera's SfM path.
+    of configs/vio.yaml, its ignition from the camera's SfM path;
+  * global mapping: the GlobalMapper of configs/global_map/global_map.json
+    at its default graph capacities (128 states: K1 at N = 2048 every LM
+    step) fed 61 SlamChunks around a loop in a hall (each scan ray-cast
+    at 16 × 1800 from the true pose, odometry drifting to 0.5 m and 2°),
+    closing the loop and answering a reloc
+    request; then run_full_refinement of that map (submap refinement as
+    one batched solve of B windows of 256² (K1), alignment, the pose-graph
+    and batch optimizations; K2 in every registration) and the refinement
+    CLI on the saved map. Checked against the truth, the reference test's
+    criteria, K1 at (1, 2048) and (B, 256) against its plain version, the
+    graph's last problem, a refinement batch and a submap registration card
+    vs CPU; K1 and K2 timed at the phase's shapes.
 
 Phases print one line each; any failure raises and exits non-zero. The
 line before the last two is the kernels' JSON record, then the card's name
@@ -151,8 +165,12 @@ SESSION_IMU_SIGMA = (2e-3, 2e-2)    # gyro rad/s, accel m/s² per sample
 MAPPER_S, MAPPER_LIDAR_HZ, MAPPER_SEED = 10.0, 10.0, 11
 # The last ticks (phase 10) and frames (phases 11, 12a) run under the
 # profiler. One each: turning the profiler's events into the idle share
-# costs ~2 ms of host time per device op, and three ticks at the LM step
-# cap held ~180K of them (~6 minutes of the script's wall).
+# costs ~2 ms of host time per device op while the host's ops are traced
+# too, and three ticks at the LM step cap held ~180K of them (~6 minutes
+# of the script's wall). Phases 10 and 13 trace the card's activity only
+# (_busy_ms); the mappers' frames trace both, as before: tracing the host
+# changes the async tick's timing, hence which problem a mapper dispatches
+# last, which phases 11 and 12 hold card vs CPU.
 SESSION_PROFILED = MAPPER_PROFILED = 1
 MAPPER_YAML = {"LIO": LIO_YAML, "LVIO": "lvio.yaml", "VIO": "vio.yaml"}
 # Phase 12: the LVIO mapper (12a) at lvio.yaml's full width and the VIO
@@ -171,6 +189,24 @@ VIO_INIT_M = 1.0
 # Queue 3).
 FRONT_END_SEED, FRONT_END_FRAMES, FRONT_END_STEP = 13, 10, (0.35, -0.65)
 FRONT_END_PX = 1e-3
+# Phase 13, global mapping: the GlobalMapper of configs/global_map/
+# global_map.json (10 m submaps; its inline EUCDIST search reads
+# distance_threshold_m, so the gate is the 10 m default, as in the JAX
+# package) at its default graph capacities (128 states, 512 relative poses,
+# LM <= 15 steps: a 2048² reduced system), fed a SlamChunk every metre
+# around a 20 m × 8 m rectangle in the HALL below, first corner at
+# GLOBAL_ORIGIN, counter-clockwise with the yaw along each side, and
+# GLOBAL_EXTRA metres past the start: 61 chunks in 5 submaps, the last
+# overlapping the first (with a 10 m short side the last submap's origin
+# lay on the search's 10 m gate: no loop closed). Every chunk's features
+# are a scan ray-cast from the true pose at 16 × 1800; its pose is the
+# truth moved by a rigid drift that grows linearly to GLOBAL_DRIFT (m of
+# shift, degrees of yaw about the first pose; its direction from numpy seed
+# GLOBAL_SEED). Then the offline refinement of that map and the CLI on it.
+GLOBAL_JSON = "global_map/global_map.json"
+GLOBAL_RECT, GLOBAL_ORIGIN, GLOBAL_EXTRA = (20.0, 8.0), (-10.0, -4.0), 4
+GLOBAL_SEED, GLOBAL_DRIFT = 13, (0.5, 2.0)
+RELOC_OFF, RELOC_TOL = (0.5, 3.0), (0.1, 0.02)   # m, degrees; m, rad
 
 
 def lio_smoother_config():
@@ -1116,11 +1152,12 @@ def _session_trajectory(device):
 def _busy_ms(fn):
     """(device ms, device ops) of one call of ``fn`` under the profiler:
     kernels and copies on the card's clock (one stream, no overlap); None
-    when the profiler lost the window's events (it now and then does)."""
+    when the profiler lost the window's events (it now and then does).
+    Only the card's activity is traced: the host's ops are not read, and
+    turning tens of thousands of them into events took ~1 ms each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1863,6 +1900,594 @@ def run_vision(card=""):
                           for k in ("k1", "k2")})
 
 
+# Phase 13's environment, ray-cast from every chunk's pose: a hall of
+# 32 m × 20 m (walls at x = ±16, y = ±10), floor at -1.8 m and ceiling at
+# +3.0 m about the sensor, and pillars of radius 0.25 m off the path,
+# placed without symmetry; range noise 5 mm (numpy seed: the chunk index).
+HALL = dict(x=16.0, y=10.0, floor=1.8, ceiling=3.0, radius=0.25,
+            pillars=((-13.0, -7.5), (-6.5, -7.0), (1.5, -8.0), (9.0, -6.5),
+                     (14.0, -2.0), (12.5, 7.5), (4.0, 6.5), (-3.5, 8.0),
+                     (-12.0, 6.0), (-14.5, 0.5), (-2.0, 0.5), (6.0, -1.0)),
+            noise=0.005)
+
+
+def _hall_grid(q, p, device, width=WIDTH, seed=0):
+    """A VLP-16 at pose (q, p) in the HALL: 16 rings from -15° to 15° ×
+    ``width`` azimuths, each beam's first hit (exact ray casting), its range
+    with seeded noise; the points in the sensor frame as a RingGrid on
+    ``device``. Every pose samples the surfaces anew, as a real scan does
+    (the vendored scan seen from another pose holds the same points)."""
+    from beam_slam_tpu_torch.core import lie_np
+    from beam_slam_tpu_torch.device import resolve, to_device_many
+    from beam_slam_tpu_torch.lidar.cloud import RingGrid
+    az = np.linspace(-np.pi, np.pi, width, endpoint=False)
+    el = np.deg2rad(np.linspace(-15.0, 15.0, N_RINGS))
+    d_s = np.stack(np.broadcast_arrays(
+        np.cos(el)[:, None] * np.cos(az)[None, :],
+        np.cos(el)[:, None] * np.sin(az)[None, :],
+        np.sin(el)[:, None] * np.ones_like(az)[None, :]), axis=-1)
+    d = lie_np.quat_rotate(np.asarray(q, np.float64)[None, None], d_s)
+    o = np.asarray(p, np.float64)
+    t = np.full(d.shape[:2], np.inf)
+    for axis, lo, hi in ((0, -HALL["x"], HALL["x"]), (1, -HALL["y"], HALL["y"]),
+                         (2, o[2] - HALL["floor"], o[2] + HALL["ceiling"])):
+        for c in (lo, hi):
+            with np.errstate(divide="ignore", invalid="ignore"):
+                tc = (c - o[axis]) / d[..., axis]
+            t = np.where((tc > 0) & np.isfinite(tc), np.minimum(t, tc), t)
+    r = HALL["radius"]
+    for cx, cy in HALL["pillars"]:
+        a = d[..., 0] ** 2 + d[..., 1] ** 2
+        b = 2 * (d[..., 0] * (o[0] - cx) + d[..., 1] * (o[1] - cy))
+        c0 = (o[0] - cx) ** 2 + (o[1] - cy) ** 2 - r * r
+        disc = b * b - 4 * a * c0
+        with np.errstate(invalid="ignore", divide="ignore"):
+            tc = (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a)
+        t = np.where((disc > 0) & (tc > 0.1), np.minimum(t, tc), t)
+    valid = np.isfinite(t) & (t < 100.0)
+    t = t + np.random.default_rng(seed).standard_normal(t.shape) * \
+        HALL["noise"]
+    xyz = np.where(valid[..., None], d_s * t[..., None], 0.0)
+    tgrid = np.broadcast_to(((az + np.pi) / (2 * np.pi) * 0.1)[None, :],
+                            valid.shape)
+    x, tg, v = to_device_many((xyz.astype(np.float32),
+                               tgrid.astype(np.float32), valid),
+                              resolve(device))
+    return RingGrid(xyz=x, time=tg, valid=v)
+
+
+def _loop_truth():
+    """Phase 13's true poses: a chunk every metre counter-clockwise around
+    GLOBAL_RECT from its first corner, the yaw along each side, then
+    GLOBAL_EXTRA chunks past the start. Returns [(q, p)] (host)."""
+    from beam_slam_tpu_torch.core import lie_np
+    W, H = GLOBAL_RECT
+    corners = [(0.0, 0.0), (W, 0.0), (W, H), (0.0, H)]
+    path = []
+    for c in range(4):
+        (x0, y0), (x1, y1) = corners[c], corners[(c + 1) % 4]
+        n = int(round(np.hypot(x1 - x0, y1 - y0)))
+        path += [(x0 + (x1 - x0) * i / n, y0 + (y1 - y0) * i / n,
+                  np.arctan2(y1 - y0, x1 - x0)) for i in range(n)]
+    path += [(float(i), 0.0, 0.0) for i in range(GLOBAL_EXTRA + 1)]
+    x0, y0 = GLOBAL_ORIGIN
+    return [(lie_np.so3_exp_quat(np.array([0, 0, yaw], np.float32)),
+             np.array([x0 + x, y0 + y, 0.0], np.float32))
+            for x, y, yaw in path]
+
+
+def _drifted(truth):
+    """The odometry: each true pose moved by a rigid drift that grows
+    linearly along the path, to GLOBAL_DRIFT (a yaw in degrees about the
+    first pose, a shift in metres at the last; direction and sign from
+    numpy seed GLOBAL_SEED), as dead reckoning drifts: the path stays
+    locally rigid. Returns [(q, p)] and each pose's position error."""
+    from beam_slam_tpu_torch.core import lie_np
+    drift = GLOBAL_DRIFT
+    rng = np.random.default_rng(GLOBAL_SEED)
+    th = rng.uniform(0, 2 * np.pi)
+    sign = rng.choice([-1.0, 1.0])
+    p0 = truth[0][1]
+    out, norms = [], []
+    for k, (q, p) in enumerate(truth):
+        f = k / (len(truth) - 1)
+        dq = lie_np.so3_exp_quat(np.array(
+            [0, 0, sign * np.deg2rad(drift[1]) * f], np.float32))
+        p_o = (p0 + lie_np.quat_rotate(dq, p - p0) + drift[0] * f
+               * np.array([np.cos(th), np.sin(th), 0.0])).astype(np.float32)
+        out.append((lie_np.quat_mul(dq, q).astype(np.float32), p_o))
+        norms.append(float(np.linalg.norm(p_o - p)))
+    return out, norms
+
+
+def _submap_on(sm, device):
+    """A copy of a submap on another device (poses shared, features
+    moved)."""
+    from beam_slam_tpu_torch.global_mapping.submap import (LidarKeyframe,
+                                                           Submap)
+    out = Submap(sm.stamp, sm.q, sm.p, device=device)
+    out.q_initial, out.p_initial = sm.q_initial, sm.p_initial
+    out.lidar_keyframes = [LidarKeyframe(k.stamp, k.q, k.p,
+                                         k.features.to(device))
+                           for k in sm.lidar_keyframes]
+    return out
+
+
+class _Recorder:
+    """Phase 13's instruments while it runs: every LM loop (steps run and
+    accepted, costs, its K1 launches, the shape of its systems), every
+    LOAM registration (its GN steps and fits), every submap-refinement
+    batch solve's inputs, and a label (the stage) on each; restored by
+    ``close``."""
+
+    def __init__(self):
+        from beam_slam_tpu_torch.lidar import registration as reg
+        from beam_slam_tpu_torch.ops import cholesky as chol
+        from beam_slam_tpu_torch.parallel import sharded
+        from beam_slam_tpu_torch.solver import batched as bsv
+        from beam_slam_tpu_torch.solver import gauss_newton as gn
+        self.stage, self.solves, self.regs, self.batches = "", [], [], []
+        self._saved = [(gn, "lm_loop", gn.lm_loop),
+                       (reg, "register_loam", reg.register_loam),
+                       (sharded, "solve_batched", sharded.solve_batched),
+                       (bsv, "solve_batched_shared",
+                        bsv.solve_batched_shared)]
+        lm_loop, register = gn.lm_loop, reg.register_loam
+
+        def lm(window, assemble, n_iter, options):
+            k1 = chol.cholesky_solve_batched.launches
+            out, d = lm_loop(window, assemble, n_iter, options)
+            c0, c1, acc = (d.initial_cost.reshape(-1).tolist(),
+                           d.final_cost.reshape(-1).tolist(),
+                           d.iterations.reshape(-1).tolist())
+            self.solves.append(dict(
+                stage=self.stage, B=len(c0), N=window.num_dense_dof + 1,
+                steps=chol.cholesky_solve_batched.launches - k1,
+                n_iter=n_iter, accepted=acc, c0=c0, c1=c1))
+            return out, d
+
+        def registration(scan, *a, **k):
+            cfg = a[6] if len(a) > 6 else k.get(
+                "cfg", reg.LoamRegistrationConfig())
+            refits = max(1, min(cfg.corr_refits or cfg.iterations,
+                                cfg.iterations))
+            self.regs.append(dict(stage=self.stage, steps=cfg.iterations,
+                                  fits=refits if cfg.corr_refits else None))
+            return register(scan, *a, **k)
+
+        def batch(fn):
+            def run(windows, families, losses, options):
+                self.batches.append((fn.__name__, windows, families, losses,
+                                     options))
+                return fn(windows, families, losses, options)
+            return run
+        gn.lm_loop = lm
+        reg.register_loam = registration
+        sharded.solve_batched = batch(sharded.solve_batched)
+        bsv.solve_batched_shared = batch(bsv.solve_batched_shared)
+
+    def close(self):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def _global_k1(problem, card, label, per_window=False):
+    """K1 on a path's own reduced system(s) against its plain version, and
+    its times against the library pair (the plain version) and the bound.
+    ``problem``: (window, families, losses, options)."""
+    from beam_slam_tpu_torch.ops import cholesky as chol
+    from beam_slam_tpu_torch.solver import gauss_newton as gn
+    window, fams, losses, opts = problem
+    H, g, H_ll, g_l, W, _ = gn.assemble_normal_equations(
+        window, fams, losses, per_window=per_window)
+    free_d = window.dense_free_mask()
+    free = torch.cat([free_d, torch.zeros_like(free_d[..., :1])], dim=-1)
+    lm_free = window.landmarks.active & ~window.landmarks.held
+    lam = torch.full(H.shape[:-2], opts.initial_lambda, device=H.device)
+    Hp, gp, _ = gn._damped_reduced_system(H, g, free, lam, H_ll, g_l, W,
+                                          lm_free)
+    N = Hp.shape[-1]
+    Hp, gp = Hp.reshape(-1, N, N).contiguous(), gp.reshape(-1, N).contiguous()
+    x, _ = chol.cholesky_solve_batched(Hp, gp)
+    x_ref, _ = chol.cholesky_solve_batched_reference(Hp, gp)
+    torch.cuda.synchronize()
+    err = float((x - x_ref).abs().max())
+    if not err <= X_TOL * float(x_ref.abs().max()):
+        raise RuntimeError(f"K1 on the {label} {tuple(Hp.shape)}: err {err}")
+    ms, plain_ms = _paired_ms(
+        lambda: chol.cholesky_solve_batched(Hp, gp),
+        lambda: chol.cholesky_solve_batched_reference(Hp, gp))
+    bound = _chol_bound(Hp.shape[0], N)
+    print(f"[13] K1 on the {label} {tuple(Hp.shape)}: max|x-x_ref|="
+          f"{err:.3e} (bound {X_TOL * float(x_ref.abs().max()):.3e}); kernel "
+          f"{ms:.4f} ms, plain = library pair (cholesky_ex + cholesky_solve) "
+          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) (CUDA "
+          f"events, {card})", flush=True)
+    return dict(shape=tuple(Hp.shape), err=err, ms=ms, plain_ms=plain_ms,
+                bound=bound)
+
+
+def _card_vs_cpu(label, solve, problem, per_window=False):
+    """One problem solved on the card and on the CPU plain path under the
+    same options: final costs within COST_RTOL, positions within DP_TOL."""
+    window, fams, losses, opts = problem
+    out, d = solve(window, fams, losses, opts)
+    t0 = time.perf_counter()
+    out_c, d_c = solve(window.to("cpu"), tuple(f.to("cpu") for f in fams),
+                       losses, opts)
+    t_cpu = time.perf_counter() - t0
+    c1, c1_c = d.final_cost.cpu().double(), d_c.final_cost.double()
+    gap = float(((c1 - c1_c).abs() / c1_c.clamp(min=1e-30)).max())
+    dp = float((out.imu.p.cpu() - out_c.imu.p).abs().max())
+    print(f"[13] {label}, card vs CPU plain path: final cost "
+          f"{c1.tolist()} / {c1_c.tolist()} (max rel gap {gap:.2e}, bound "
+          f"{COST_RTOL}), max|dp| {dp:.2e} m (bound {DP_TOL}), accepted "
+          f"{d.iterations.tolist()} / {d_c.iterations.tolist()}; the CPU "
+          f"{t_cpu:.1f} s", flush=True)
+    if not (gap <= COST_RTOL and dp <= DP_TOL):
+        raise RuntimeError(f"{label}: the card disagrees with the CPU")
+
+
+def _global_knn_times(match, query, res, card):
+    """K2 at the submap-to-submap registration's shapes: the query
+    submap's aggregated features placed by the registration's result
+    against the match submap's, edges (k=5) and surfaces (k=10). The
+    library yardstick (cdist + topk) runs in blocks of 16384 queries: one
+    call at these shapes would need a Q × R distance matrix of ~40 GB."""
+    from beam_slam_tpu_torch.core import lie
+    from beam_slam_tpu_torch.device import to_device_many
+    from beam_slam_tpu_torch.ops import knn
+    me, mev, ms_, msv = match.aggregate_features_submap_frame()
+    qe, _, qs, _ = query.aggregate_features_submap_frame()
+    dq, dp = to_device_many((res.dq, res.dp), me.device)
+    out = {}
+    for label, q_pts, r, v, k in (("edges", qe, me, mev, 5),
+                                  ("surfaces", qs, ms_, msv, 10)):
+        q = (lie.quat_rotate(dq[None], q_pts) + dp[None]).contiguous()
+        r, v = r.contiguous(), v.contiguous()
+        err = _knn_check(knn, q, r, v, k, f"submap {label}")
+        Q, R, n_valid = q.shape[0], r.shape[0], int(v.sum())
+        k_ms, plain_ms = _paired_ms(lambda: knn.knn_topk(q, r, v, k),
+                                    lambda: knn.knn_topk_reference(q, r, v, k),
+                                    reps=3)
+        lib_ms = _event_ms(lambda: [torch.topk(torch.cdist(
+            qc, r).masked_fill_(~v, float("inf")), k, largest=False)
+            for qc in torch.split(q, 16384)], 3)
+        try:
+            dev_ms, how = _device_ms(lambda: knn.knn_topk(q, r, v, k),
+                                     "knn_topk_kernel", reps=5), "profiler"
+        except RuntimeError:   # it lost the events: a call's CUDA events,
+            dev_ms, how = k_ms, "CUDA events"   # at ms scale the same
+        bound = _knn_bound(Q, R, n_valid, k)
+        out[label] = dict(ms=dev_ms, call_ms=k_ms, plain=plain_ms, lib=lib_ms,
+                          bound=bound, err=err, shape=(Q, R, k))
+        print(f"[13] K2 at the submap registration's {label} ({Q}, {R}, "
+              f"k={k}), {n_valid} valid refs: kernel {dev_ms:.4f} ms on the "
+              f"device ({how}), {k_ms:.4f} ms a call (CUDA events); plain "
+              f"{plain_ms:.3f} ms, cdist+topk in blocks {lib_ms:.3f} ms (CUDA "
+              f"events); bound {bound[0]:.4f} ms ({bound[1]}) ({card})",
+              flush=True)
+    return out
+
+
+def run_global(card="", device="cuda", width=WIDTH):
+    """Phase 13, global mapping on the card. 13a: the GlobalMapper of
+    configs/global_map/global_map.json at its default graph capacities fed
+    phase 13's chunks, a loop closure on the last submap and a solve (the
+    flush of tests/test_global_mapping.py), then a reloc request for a
+    keyframe of the first submap from a pose RELOC_OFF off. 13b: the
+    offline refinement of that map (submap refinement, alignment, the
+    pose-graph optimization, the batch optimization) and the refinement
+    CLI, on the card, on the saved map. Every check raises. Returns the
+    launch counts and the kernels' records. ``device="cpu"`` (with a
+    smaller ``width``) rehearses the phase
+    off the card: no profiler, no kernel comparison or times, no CLI."""
+    from beam_slam_tpu_torch.core import lie_np
+    from beam_slam_tpu_torch.global_mapping import refinement as tref
+    from beam_slam_tpu_torch.global_mapping.global_map import (
+        GlobalMap, global_map_from_config)
+    from beam_slam_tpu_torch.global_mapping.submap import Submap
+    from beam_slam_tpu_torch.lidar import features as feat
+    from beam_slam_tpu_torch.models.global_mapper import GlobalMapper
+    from beam_slam_tpu_torch.models.lidar_odometry import SlamChunk
+    from beam_slam_tpu_torch.ops import cholesky as chol
+    from beam_slam_tpu_torch.ops import knn
+    from beam_slam_tpu_torch.parallel import sharded
+    from beam_slam_tpu_torch.solver import batched as bsv
+    from beam_slam_tpu_torch.solver import gauss_newton as gn
+    from beam_slam_tpu_torch.solver.smoother import Transaction
+
+    cuda = device == "cuda"
+    dev = None if cuda else device   # entry points: None is the card
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def launches():
+        return (chol.cholesky_solve_batched.launches, knn.knn_topk.launches)
+
+    truth = _loop_truth()
+    odom, drift = _drifted(truth)
+    gmap = global_map_from_config(GLOBAL_JSON, config_root=str(
+        ROOT / "configs"), device=dev)
+    gm = GlobalMapper(global_map=gmap)
+    cfg = gm.smoother.cfg
+    rec = _Recorder()
+    try:
+        # ---- 13a. the online global mapper
+        chol.cholesky_solve_batched.launches = knn.knn_topk.launches = 0
+        rec.stage = "online"
+        walls, roll_walls, feats = [], [], []
+        t_a = time.perf_counter()
+        for k, ((q_t, p_t), (q_o, p_o)) in enumerate(zip(truth, odom)):
+            fc = feat.extract_features(_hall_grid(q_t, p_t, dev, width,
+                                                  seed=k))
+            feats.append(fc)
+            n_sub = len(gm.map.submaps)
+            sync()
+            t0 = time.perf_counter()
+            gm.process_slam_chunk(SlamChunk(stamp=float(k), q_wb=q_o,
+                                            p_wb=p_o, features=fc))
+            sync()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            if len(gm.map.submaps) > n_sub > 0:
+                roll_walls.append(walls[-1])
+        subs = gm.map.submaps
+        n_sub = len(subs)
+        txn = Transaction(stamp=1e3)
+        sync()
+        t0 = time.perf_counter()
+        found = gm.map.run_loop_closure(n_sub - 1, txn)
+        sync()
+        loop_wall = 1e3 * (time.perf_counter() - t0)
+        if found:
+            gm.smoother.send_transaction(txn)
+        solve_wall = []
+
+        def flush_solve():   # its own wall, without the profiler's wrap-up
+            sync()
+            t0 = time.perf_counter()
+            gm.optimize()
+            sync()
+            solve_wall.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        flush = _busy_ms(flush_solve) if cuda else flush_solve()
+        prof_s = time.perf_counter() - t0 - solve_wall[0] / 1e3
+        flush_wall = loop_wall + solve_wall[0]
+        online_l = launches()
+        t_online = time.perf_counter() - t_a
+
+        first_k = [int(sm.stamp) for sm in subs]
+        sub_err = [round(float(np.linalg.norm(sm.p - truth[k][1])), 4)
+                   for sm, k in zip(subs, first_k)]
+        last = subs[-1]
+        e_last = float(np.linalg.norm(last.p - truth[first_k[-1]][1]))
+        d_last = drift[first_k[-1]]
+        loops = len(gm.map._loop_closures)
+        n_rel = int(gm.smoother.arena_rel.active.sum())
+        print(f"[13a] GlobalMapper of {GLOBAL_JSON} (submaps "
+              f"{gm.map.params.submap_size_m} m, {type(gm.map.candidate_search).__name__} "
+              f"at {getattr(gm.map.candidate_search, 'max_distance_m', '-')} m), graph "
+              f"{cfg.max_states} states / {cfg.max_rel_pose_factors} relative "
+              f"poses, LM <= {cfg.solver.max_iterations}: {len(truth)} chunks "
+              f"around {GLOBAL_RECT[0]} m x {GLOBAL_RECT[1]} m, drift to "
+              f"{GLOBAL_DRIFT[0]} m "
+              f"/ {GLOBAL_DRIFT[1]} deg; {n_sub} submaps (first chunks "
+              f"{first_k}), {gm.n_loop_closures} loop closures at rollovers "
+              f"+ {found} at the flush ({[(a, b) for a, b, _ in gm.map._loop_closures]}), "
+              f"{n_rel} relative-pose factors in the graph; submaps "
+              f"{sub_err} m off the truth (odometry {[round(drift[k], 4) for k in first_k]}); "
+              f"last submap {e_last:.4f} m off the truth after the "
+              f"flush (odometric drift there {d_last:.4f} m, bound "
+              f"{0.5 * d_last:.4f})", flush=True)
+        if n_sub < 5 or gm.n_loop_closures + found < 1 or \
+                n_rel < n_sub or not e_last <= 0.5 * d_last:
+            raise RuntimeError(f"13a: {n_sub} submaps, {loops} loops, "
+                               f"{n_rel} relative poses, last submap "
+                               f"{e_last} m off (drift {d_last})")
+
+        # the reloc request: a keyframe of the first submap, its features
+        # seen from the truth, asked from a pose RELOC_OFF off. The third
+        # keyframe: the search ranks submaps by the distance of their
+        # origins, and the first submap's (held by the graph's prior) is
+        # then the nearest
+        k_r = first_k[0] + min(2, len(subs[0].lidar_keyframes) - 1)
+        rng = np.random.default_rng(GLOBAL_SEED + 1)
+        th = rng.uniform(0, 2 * np.pi)
+        q_t, p_t = truth[k_r]
+        q_est = lie_np.quat_mul(q_t, lie_np.so3_exp_quat(np.array(
+            [0, 0, np.deg2rad(RELOC_OFF[1])], np.float32))).astype(np.float32)
+        p_est = p_t + (RELOC_OFF[0] * np.array([np.cos(th), np.sin(th), 0])
+                       ).astype(np.float32)
+        rec.stage = "reloc"
+        n_reg = len(rec.regs)
+        probe = Submap(2e3, q_est, p_est, device=dev)
+        cands = gm.map.candidate_search.find(
+            subs + [probe], n_sub, gm.map.params.max_candidates)
+        t0 = time.perf_counter()
+        ans = gm.process_reloc_request(2e3, feats[k_r], q_est, p_est)
+        reloc_wall = 1e3 * (time.perf_counter() - t0)
+        if ans is None:
+            raise RuntimeError("13a: the reloc request found no match")
+        e_p = float(np.linalg.norm(ans[1] - p_t))
+        e_r = _so3_err(ans[0], q_t)
+        print(f"[13a] reloc request for chunk {k_r} from {RELOC_OFF[0]} m / "
+              f"{RELOC_OFF[1]} deg off (candidate submaps {cands}): "
+              f"{e_p:.4f} m / {e_r:.4f} rad off the "
+              f"truth (bounds {RELOC_TOL}), {len(rec.regs) - n_reg} "
+              f"registrations, {reloc_wall:.1f} ms", flush=True)
+        if not (e_p <= RELOC_TOL[0] and e_r <= RELOC_TOL[1]):
+            raise RuntimeError("13a: the reloc request missed the truth")
+        print(f"[13a] process_slam_chunk wall ({card}): median "
+              f"{statistics.median(walls):.1f} ms, max {max(walls):.1f} ms "
+              f"over {len(walls)} chunks; on a rollover (a solve) max "
+              f"{max(roll_walls or [0.0]):.1f} ms over {len(roll_walls)}; the "
+              f"flush {flush_wall:.1f} ms (its loop closure {loop_wall:.1f} "
+              f"ms, its solve {solve_wall[0]:.1f} ms under the profiler); 13a "
+              f"{t_online:.1f} s; K1 {online_l[0]}, K2 {online_l[1]} "
+              f"launches", flush=True)
+        if flush:
+            print(f"[13a] the flush's solve under the profiler: {flush[1]} "
+                  f"device ops, device time {flush[0]:.2f} ms of "
+                  f"{solve_wall[0]:.1f} ms wall, so the card is idle "
+                  f"{100 * (1 - flush[0] / solve_wall[0]):.1f}% ({card}); "
+                  f"the profiler's wrap-up {prof_s:.1f} s", flush=True)
+        elif cuda:
+            print("[13a] the flush's solve under the profiler: the profiler "
+                  "lost its events; device time not measured", flush=True)
+
+        # ---- 13b. the offline refinement: run_full_refinement's four
+        # stages in its order, each timed and counted
+        kf_pos = lambda: {(si, ki): kf.p.copy()  # noqa: E731
+                          for si, sm in enumerate(subs)
+                          for ki, kf in enumerate(sm.lidar_keyframes)}
+        kf_before = kf_pos()
+        stage_l, stage_s, stats = {}, {}, {}
+        for name in ("run_submap_refinement", "run_submap_alignment",
+                     "run_pose_graph_optimization",
+                     "run_batch_optimization"):
+            rec.stage = name
+            l0 = launches()
+            sync()
+            t0 = time.perf_counter()
+            stats[name] = getattr(tref, name)(gm.map)
+            sync()
+            stage_s[name] = time.perf_counter() - t0
+            stage_l[name] = tuple(b - a for a, b in zip(l0, launches()))
+            if name == "run_submap_refinement":
+                kf_refined = kf_pos()
+    finally:
+        rec.close()
+    total_l = launches()
+    print(f"[13b] run_full_refinement's stages ({card}): " + "; ".join(
+        f"{n} {stage_s[n]:.1f} s, K1 {stage_l[n][0]} / K2 {stage_l[n][1]} "
+        f"launches, returns {stats[n]}" for n in stage_s), flush=True)
+
+    # submap refinement lowers the demeaned per-keyframe error. A submap's
+    # keyframes are stored in its frame, the odometry's pose of its first
+    # chunk; under a drift that is locally rigid that frame holds the true
+    # geometry relative to the first chunk's true pose, the truth here
+    def kf_err(pos):
+        out = []
+        for si, sm in enumerate(subs):
+            q_f, p_f = truth[int(sm.stamp)]
+            d = np.stack([pos[(si, ki)] - lie_np.quat_rotate(
+                lie_np.quat_conj(q_f), truth[int(kf.stamp)][1] - p_f)
+                for ki, kf in enumerate(sm.lidar_keyframes)])
+            out.extend(np.linalg.norm(d - d.mean(0), axis=1))
+        return float(np.mean(out))
+    e0, e1 = kf_err(kf_before), kf_err(kf_refined)
+    batch = stats["run_batch_optimization"]
+    bad = [r for r in rec.solves if not (
+        all(np.isfinite(r["c1"])) and all(
+            c1 <= c0 for c0, c1 in zip(r["c0"], r["c1"])))]
+    steps = sum(r["n_iter"] for r in rec.solves)
+    reg_steps = sum(r["steps"] for r in rec.regs)
+    print(f"[13b] demeaned keyframe error {e0:.4f} m before submap "
+          f"refinement, {e1:.4f} m after; the batch optimization kept "
+          f"{batch['loops_kept']} of {batch['loops_found']} loops over "
+          f"{batch['keyframes']} keyframes; {len(rec.solves)} solves "
+          f"({sum(r['B'] for r in rec.solves)} systems), {steps} LM steps, "
+          f"K1 {total_l[0]} launches; {len(rec.regs)} registrations, "
+          f"{reg_steps} GN steps, K2 {total_l[1]} launches", flush=True)
+    for r in rec.solves:
+        print(f"[13] solve ({r['stage']}): B={r['B']}, {r['N']} dense dof, "
+              f"{r['steps']} LM steps run, accepted {r['accepted']}, cost "
+              f"{r['c0']} -> {r['c1']}", flush=True)
+    if not (e1 < e0 and batch["loops_kept"] >= 1 and not bad):
+        raise RuntimeError(f"13b: keyframe error {e0} -> {e1}, batch "
+                           f"{batch}, bad solves {bad}")
+    if cuda and not (total_l[0] >= steps and total_l[1] >= 2 * reg_steps):
+        raise RuntimeError(f"13: K1 {total_l[0]} launches for {steps} LM "
+                           f"steps, K2 {total_l[1]} for {reg_steps} "
+                           f"registration steps")
+    out = dict(launches=dict(k1=total_l[0], k2=total_l[1]))
+    if not cuda:
+        return out
+
+    # K1 on the global graph's own system (1, 2048) and on a submap
+    # refinement batch's (B, 256); each problem card vs CPU
+    g_prob = gm.smoother._build_device_problem() + (cfg.solver,)
+    out["k1_global"] = _global_k1(g_prob, card, "global graph's system")
+    _card_vs_cpu("the global graph's last problem", gn.solve, g_prob)
+    name, *b_prob = rec.batches[0]
+    per_window = name == "solve_batched"
+    out["k1_batch"] = _global_k1(b_prob, card, "submap refinement batch",
+                                 per_window=per_window)
+    _card_vs_cpu(f"a submap refinement batch ({name})",
+                 sharded.solve_batched if per_window
+                 else bsv.solve_batched_shared, b_prob)
+    if out["k1_global"]["shape"][1:] != (2048, 2048) or \
+            out["k1_batch"]["shape"][1:] != (256, 256):
+        raise RuntimeError(f"13: K1 shapes {out['k1_global']['shape']}, "
+                           f"{out['k1_batch']['shape']}")
+
+    # the refinement CLI, on the card, on the map saved to a directory: in
+    # its own process, while this one holds a registration on the CPU
+    tmp = tempfile.TemporaryDirectory()
+    gm.save(tmp.name + "/map")
+    t0 = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m",
+         "beam_slam_tpu_torch.tools.global_map_refinement_main",
+         "--globalmap_dir", tmp.name + "/map", "--output_path",
+         tmp.name + "/out", "--run_submap_refinement"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # one submap-to-submap registration, card vs CPU: the reloc query
+        # (one keyframe) against the first submap
+        query = Submap(2e3, q_est, p_est, device=dev)
+        query.add_lidar_keyframe(2e3, q_est, p_est, feats[k_r])
+        ref = gm.map.refinement
+        r_card = ref.refine(subs[0], query)
+        t1 = time.perf_counter()
+        r_cpu = ref.refine(_submap_on(subs[0], "cpu"),
+                           _submap_on(query, "cpu"))
+        t_cpu = time.perf_counter() - t1
+        e_p = float(np.linalg.norm(r_card.dp - r_cpu.dp))
+        e_r = _so3_err(r_card.dq, r_cpu.dq)
+        print(f"[13] one submap-to-submap registration (the reloc query "
+              f"against submap 0), card vs CPU plain path: {e_p:.2e} m / "
+              f"{e_r:.2e} rad (bounds {CARD_CPU_DP} / {CARD_CPU_ROT}), "
+              f"successful {r_card.successful} / {r_cpu.successful}; the "
+              f"CPU {t_cpu:.1f} s", flush=True)
+        if not (e_p <= CARD_CPU_DP and e_r <= CARD_CPU_ROT
+                and r_card.successful == r_cpu.successful):
+            raise RuntimeError("13: the submap registration on the card "
+                               "disagrees with the CPU")
+        _, err = cli.communicate(timeout=900)
+        cli_s = time.perf_counter() - t0
+        if cli.returncode != 0:
+            raise RuntimeError(f"13: the refinement CLI failed: "
+                               f"{err[-3000:]}")
+        with open(tmp.name + "/out/refinement_stats.json") as f:
+            cli_stats = json.load(f)
+        back = GlobalMap.load(tmp.name + "/out")
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        tmp.cleanup()
+    moved = max(float(np.abs(a.p - b.p).max())
+                for s2, s1 in zip(back.submaps, subs)
+                for a, b in zip(s2.lidar_keyframes, s1.lidar_keyframes))
+    if len(back.submaps) != n_sub or not np.isfinite(moved) or \
+            not np.isfinite(cli_stats["refinement_cost"]):
+        raise RuntimeError(f"13: the CLI's map: {len(back.submaps)} "
+                           f"submaps, moved {moved}, {cli_stats}")
+    print(f"[13b] the refinement CLI (python -m beam_slam_tpu_torch.tools."
+          f"global_map_refinement_main --run_submap_refinement, on the card) "
+          f"on the saved map: {cli_s:.1f} s of wall with its start-up, beside "
+          f"the registration on the CPU; stats {cli_stats}; its map loads "
+          f"back, keyframes moved up to {moved:.4f} m ({card})", flush=True)
+
+    # K2 at the loop closure's shapes (the last submap against its match)
+    ci, qi, res = gm.map._loop_closures[-1]
+    out["k2"] = _global_knn_times(subs[ci], subs[qi], res, card)
+    return out
+
+
 def main(only: str = "") -> int:
     # ---- 1. require CUDA
     if not torch.cuda.is_available():
@@ -1893,7 +2518,8 @@ def main(only: str = "") -> int:
     if only:
         wanted = dict(k1=(chol,), k2=(knn,), k3=(moments,),
                       smoother=(chol, knn), mapper=(chol, knn),
-                      lvio=(chol, knn))[only.split("-")[0]]
+                      lvio=(chol, knn), **{"global": (chol, knn)})[
+                          only.split("-")[0]]
         libs = {name: mod for name, mod in libs.items() if mod in wanted}
     built = nvcc_build.build_many([(name, mod.SOURCES)
                                    for name, mod in libs.items()])
@@ -1917,6 +2543,10 @@ def main(only: str = "") -> int:
         return 0
     if only == "lvio":  # the vision phases alone
         run_vision(card)
+        print(card)
+        return 0
+    if only == "global":  # global mapping alone
+        run_global(card)
         print(card)
         return 0
     if only in ("k2", "k3"):  # alone, on a map built at ground-truth poses
@@ -2040,7 +2670,11 @@ def main(only: str = "") -> int:
     vision = run_vision(card)
     lap("12")
 
-    # ---- 13. records (K2 at the surface shape, the larger of the two)
+    # ---- 13. global mapping and the map refinement (K1, K2)
+    glob = run_global(card)
+    lap("13")
+
+    # ---- 14. records (K2 at the surface shape, the larger of the two)
     kb1, kb1_by = _chol_bound(1, 640)
     k2s = kc["k2"]["times"]["surfaces"]
     k3s = kc["k3"]["times"]["surfaces"]
@@ -2050,7 +2684,7 @@ def main(only: str = "") -> int:
         "replaces": "beam_slam_tpu/ops/pallas_cholesky.py:226",
         "launches": (launches_flagship + launches_batched
                      + sess["launches"]["k1"] + mapper["launches"]["k1"]
-                     + vision["launches"]["k1"]),
+                     + vision["launches"]["k1"] + glob["launches"]["k1"]),
         "max_abs_err": max_err, "ms": times[1][0], "plain_ms": times[1][1],
         "bound_ms": kb1, "bound_by": kb1_by,
         # the plain version is the library pair cholesky_ex + cholesky_solve
@@ -2060,7 +2694,8 @@ def main(only: str = "") -> int:
         "source": "beam_slam_tpu_torch/csrc/knn.cu",
         "replaces": "beam_slam_tpu/ops/pallas_knn.py:110",
         "launches": (lio["launches"] + sess["launches"]["k2"]
-                     + mapper["launches"]["k2"] + vision["launches"]["k2"]),
+                     + mapper["launches"]["k2"] + vision["launches"]["k2"]
+                     + glob["launches"]["k2"]),
         "max_abs_err": kc["k2"]["err"],
         "ms": k2s["ms"], "plain_ms": k2s["plain"],
         "bound_ms": k2s["bound"][0], "bound_by": k2s["bound"][1],
@@ -2086,7 +2721,7 @@ if __name__ == "__main__":
         knn_counts((sys.argv[2:] or ["cuda"])[0])
         sys.exit(0)
     if sys.argv[1:] not in ([], ["k1"], ["k2"], ["k3"], ["smoother"],
-                            ["mapper"], ["lvio"]):
+                            ["mapper"], ["lvio"], ["global"]):
         sys.exit(f"usage: {sys.argv[0]} [k1 | k2 | k3 | smoother | mapper | "
-                 f"lvio | knn-counts [cpu|cuda]]")
+                 f"lvio | global | knn-counts [cpu|cuda]]")
     sys.exit(main(only=(sys.argv[1:] or [""])[0]))

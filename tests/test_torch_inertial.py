@@ -258,6 +258,23 @@ def _vision_entry(name):
     return LocalMapper(cfg)
 
 
+def _global_entry(name):
+    """The global-mapping slice's entry points: the GlobalMapper, a saved
+    submap loaded, and the refinement CLI."""
+    import tempfile
+
+    from beam_slam_tpu_torch.global_mapping.submap import Submap
+    from beam_slam_tpu_torch.models.global_mapper import GlobalMapper
+    from beam_slam_tpu_torch.tools import global_map_refinement_main as cli
+    if name == "GlobalMapper":
+        return GlobalMapper()
+    d = tempfile.mkdtemp()
+    Submap(0.0, np.array([1.0, 0, 0, 0]), np.zeros(3), device="cpu").save(d)
+    if name == "Submap.load":
+        return Submap.load(d)
+    return cli.main(["--globalmap_dir", d, "--output_path", d + "/out"])
+
+
 ENTRY_POINTS = {
     "FixedLagSmoother": lambda: tsm.FixedLagSmoother(tsm.SmootherConfig()),
     "ImuPreintegrationModel": lambda: tio.ImuPreintegrationModel(),
@@ -267,6 +284,9 @@ ENTRY_POINTS = {
         tsim.AnalyticTrajectory(device="cpu"), 0.0, 0.1, RATE),
     "VisualFeatureTracker": lambda: _vision_entry("tracker"),
     "LocalMapper(LVIO)": lambda: _vision_entry("lvio"),
+    "GlobalMapper": lambda: _global_entry("GlobalMapper"),
+    "Submap.load": lambda: _global_entry("Submap.load"),
+    "global_map_refinement_main": lambda: _global_entry("cli"),
     "estimate_parameters": lambda: tal.estimate_parameters(
         np.arange(3.0), np.tile([1.0, 0, 0, 0], (3, 1)), np.zeros((3, 3)),
         np.arange(0.0, 2.0, 0.01), np.zeros((200, 3)), np.zeros((200, 3)),

@@ -42,6 +42,12 @@ def test_port_imports_without_jax():
     for kernel_module in ("cholesky", "knn", "moments"):
         assert f"beam_slam_tpu_torch.ops.{kernel_module}" in mods
     assert "beam_slam_tpu_torch.lidar.scan_registration" in mods
+    for new in ("obs.artifacts", "global_mapping.submap",
+                "global_mapping.scancontext", "global_mapping.reloc",
+                "global_mapping.global_map", "global_mapping.refinement",
+                "models.global_mapper", "parallel.sharded",
+                "tools.global_map_refinement_main", "bridge"):
+        assert f"beam_slam_tpu_torch.{new}" in mods, new
     proc = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
