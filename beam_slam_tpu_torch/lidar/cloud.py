@@ -3,10 +3,9 @@
 
 Static-shape tensors + validity masks in place of PCL's point types, and the
 host-side "organize" step that bins an unordered scan into the ring-major
-grid consumed by the LOAM feature extraction. ``organize_scan`` is the
-reference's NumPy branch; the reference's native ``.so`` branch
-(``ops/native.py``) gives the same grid on the vendored VLP-16 scan and is
-ported with ``ops/native.py`` later.
+grid consumed by the LOAM feature extraction. ``organize_scan`` bins with
+the host C++ library (``ops/native.py``) where a ``g++`` is on ``PATH``, and
+with :func:`organize_scan_numpy`, its plain version, where none is.
 """
 
 from __future__ import annotations
@@ -65,7 +64,22 @@ def organize_scan(points: np.ndarray, rings: np.ndarray,
                   times: Optional[np.ndarray], n_rings: int, width: int,
                   device=None) -> RingGrid:
     """Host-side binning of an unordered scan into a ring-major, azimuth-
-    sorted grid, built on ``device`` (the card unless asked otherwise)."""
+    sorted grid, built on ``device`` (the card unless asked otherwise).
+    Runs once per scan on ingest, in the host C++ library when a ``g++`` is
+    there (a failing build raises), in numpy otherwise."""
+    from beam_slam_tpu_torch.ops import native
+    device = resolve(device)
+    if native.native_available():
+        return _grid(*native.organize_scan_native(points, rings, times,
+                                                  n_rings, width), device)
+    return organize_scan_numpy(points, rings, times, n_rings, width, device)
+
+
+def organize_scan_numpy(points: np.ndarray, rings: np.ndarray,
+                        times: Optional[np.ndarray], n_rings: int, width: int,
+                        device=None) -> RingGrid:
+    """:func:`organize_scan` in numpy (its plain version): a stable sort by
+    (ring, azimuth), then the first ``width`` points of each ring."""
     points = np.asarray(points, np.float32)
     n = len(points)
     if times is None:

@@ -6,8 +6,9 @@ Replacement for the reference's LidarScanDeskewer plugin
 the scan-start frame using the pose interpolated at its own timestamp (the
 reference queries a FrameInitializer per point; here the whole grid is
 compensated in one vectorized pass given the scan-start and scan-end poses
-from inertial odometry). The deskewer model that drives it is not ported
-yet; :func:`slerp` also serves the frame initializer."""
+from inertial odometry). The deskewer model (``models/
+lidar_scan_deskewer.py``) drives it; :func:`slerp` also serves the frame
+initializer."""
 
 from __future__ import annotations
 

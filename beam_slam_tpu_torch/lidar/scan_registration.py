@@ -1,12 +1,18 @@
 """Scan registration strategies producing factor-graph measurements (port of
-the scan-to-map part of :mod:`beam_slam_tpu.lidar.scan_registration`).
+:mod:`beam_slam_tpu.lidar.scan_registration`).
 
   * ScanToMapLoamRegistration: register each scan against the rolling
     RegistrationMap, chain a relative-pose factor to the previous scan pose
     (measured in the lidar frame → with-extrinsics factor), first-scan prior.
   * PipelinedScanToMapRegistration: the same factors from a device-resident
     map, with the result pulled back asynchronously one scan later.
-  * create_scan_registration: the JSON factory, for SCANTOMAP × LOAM.
+  * MultiScanLoamRegistration: register the new scan against each of the
+    last N reference scans, one relative factor per successful match.
+  * MultiScanMatcherRegistration: the same with a generic matcher (ICP,
+    GICP, NDT of :mod:`beam_slam_tpu_torch.lidar.matchers`) on raw
+    downsampled clouds.
+  * create_scan_registration: the JSON factory, SCANTOMAP × LOAM and
+    MULTISCAN × {LOAM, ICP, GICP, NDT}.
 
 All heavy math happens in :mod:`beam_slam_tpu_torch.lidar.registration`;
 this module is thin host orchestration emitting
@@ -25,12 +31,15 @@ import numpy as np
 import torch
 
 from beam_slam_tpu_torch.core import lie
-from beam_slam_tpu_torch.device import HostCopy, resolve, to_device, to_numpy
+from beam_slam_tpu_torch.device import (HostCopy, resolve, to_device,
+                                        to_device_many, to_numpy)
 from beam_slam_tpu_torch.lidar import device_map as dmap
 from beam_slam_tpu_torch.lidar import features as feat
+from beam_slam_tpu_torch.lidar import matchers as gm
 from beam_slam_tpu_torch.lidar import registration as reg
 from beam_slam_tpu_torch.lidar.cloud import FeatureCloud, RingGrid
 from beam_slam_tpu_torch.lidar.registration_map import RegistrationMap
+from beam_slam_tpu_torch.ops import knn
 from beam_slam_tpu_torch.solver.smoother import Transaction
 
 LIDAR_SENSOR = "lidar"
@@ -90,6 +99,13 @@ def _sqrt_info_6(params: ScanRegistrationParams, information) -> np.ndarray:
     return A.numpy()
 
 
+def _loam_ks(reg_cfg: reg.LoamRegistrationConfig) -> tuple:
+    """The k a LOAM registration asks of the kNN search (none in radius
+    mode, which takes K3)."""
+    return () if reg_cfg.corr_mode == "radius" else (reg_cfg.k_edge,
+                                                      reg_cfg.k_surf)
+
+
 def _pose_to_device(q, p, device):
     """Host (q, p) → one copy to ``device`` → (q [4], p [3]) tensors."""
     qp = to_device(np.concatenate([q, p]).astype(np.float32), device)
@@ -141,6 +157,7 @@ class ScanToMapLoamRegistration(_LidarFrame):
         self.params = params
         self.reg_cfg = reg_cfg
         self.device = resolve(device)
+        knn.require_ks(_loam_ks(reg_cfg), self.device, type(self).__name__)
         # downsample_voxel: the reference's downsample_voxel_size, a voxel
         # dedup of the assembled world map before the correspondence search
         self.map = RegistrationMap(map_size=map_size,
@@ -258,6 +275,7 @@ class PipelinedScanToMapRegistration(_LidarFrame):
         self.params = params
         self.reg_cfg = reg_cfg
         self.device = resolve(device)
+        knn.require_ks(_loam_ks(reg_cfg), self.device, type(self).__name__)
         self.map_size = map_size
         self.depth = max(1, depth)
         self.world_voxel = float(downsample_voxel)
@@ -369,6 +387,189 @@ class PipelinedScanToMapRegistration(_LidarFrame):
         return True
 
 
+class _MultiScan(_LidarFrame):
+    """What the two MultiScan strategies share: the reference scans within
+    the lag, the registration against each of the newest
+    ``num_neighbors``, one relative factor per accepted match
+    (multi_scan_registration.cpp). Seeds are baselink poses, as in the
+    scan-to-map strategies; reference poses are host numpy lidar poses."""
+
+    def _init_refs(self, params, num_neighbors, lag_duration, q_bl, p_bl,
+                   device):
+        self.params = params
+        self.num_neighbors = num_neighbors
+        self.lag_duration = lag_duration
+        self.device = resolve(device)
+        self._set_extrinsic(q_bl, p_bl)
+        self.refs: list = []  # (stamp, q, p, cloud) newest-last
+        self.failures = 0
+
+    def _register(self, stamp, cloud, q_seed_bl, p_seed_bl, txn):
+        """The subclass's ``_match(cloud, ref_cloud, q_ref, p_ref, q_seed,
+        p_seed)`` (poses as tensors on ``device``) gives a result with q, p,
+        information and converged."""
+        q_seed, p_seed = self._lidar_from_baselink(q_seed_bl, p_seed_bl)
+        # prune by lag
+        self.refs = [r for r in self.refs
+                     if stamp - r[0] <= self.lag_duration]
+        if not self.refs:
+            if self.params.fix_first_scan:
+                # prior on the baselink pose
+                txn.add_abs_pose(stamp, np.asarray(q_seed_bl, np.float32),
+                                 np.asarray(p_seed_bl, np.float32),
+                                 _PRIOR_SQRT_INFO)
+            self.refs.append((stamp, q_seed, p_seed, cloud))
+            return True
+
+        seed_t = _pose_to_device(q_seed, p_seed, self.device)
+        n_ok = 0
+        q_reg, p_reg = q_seed, p_seed
+        for r_stamp, r_q, r_p, r_cloud in self.refs[-self.num_neighbors:]:
+            res = self._match(cloud, r_cloud,
+                              *_pose_to_device(r_q, r_p, self.device),
+                              *seed_t)
+            # one wait for everything the host needs
+            q_m, p_m, information, converged = to_numpy(
+                res.q, res.p, res.information, res.converged)
+            if not bool(converged) or not _validate(
+                    q_seed, p_seed, q_m, p_m, self.params):
+                continue
+            dq, dp = _pose_delta(r_q, r_p, q_m, p_m)
+            txn.add_relative_pose(r_stamp, stamp, dq, dp,
+                                  _sqrt_info_6(self.params, information),
+                                  sensor=LIDAR_SENSOR)
+            q_reg, p_reg = q_m, p_m
+            n_ok += 1
+
+        if n_ok == 0:
+            self.failures += 1
+            return False
+        self.failures = 0
+        self.refs.append((stamp, q_reg, p_reg, cloud))
+        return True
+
+
+class MultiScanLoamRegistration(_MultiScan):
+    """Register the new scan against each of the last ``num_neighbors``
+    reference scans; one relative factor per match
+    (multi_scan_registration.cpp). The references' features stay on
+    ``device`` (the card unless asked otherwise), where the features passed
+    in must lie too."""
+
+    def __init__(self, params: ScanRegistrationParams = ScanRegistrationParams(),
+                 reg_cfg: reg.LoamRegistrationConfig = reg.LoamRegistrationConfig(),
+                 num_neighbors: int = 3, lag_duration: float = 10.0,
+                 q_bl=None, p_bl=None, device=None):
+        self._init_refs(params, num_neighbors, lag_duration, q_bl, p_bl,
+                        device)
+        knn.require_ks(_loam_ks(reg_cfg), self.device, type(self).__name__)
+        self.reg_cfg = reg_cfg
+
+    def _match(self, features, r_feat, r_q, r_p, q_seed, p_seed):
+        ref_world = r_feat.transform(r_q, r_p)
+        me = torch.cat([ref_world.edge_strong, ref_world.edge_weak])
+        mev = torch.cat([r_feat.edge_strong_valid, r_feat.edge_weak_valid])
+        ms = torch.cat([ref_world.surf_strong, ref_world.surf_weak])
+        msv = torch.cat([r_feat.surf_strong_valid, r_feat.surf_weak_valid])
+        return reg.register_loam(features, me, mev, ms, msv, q_seed, p_seed,
+                                 self.reg_cfg)
+
+    def register_new_scan(self, stamp: float, features: FeatureCloud,
+                          q_seed_bl, p_seed_bl, txn: Transaction,
+                          grid: Optional[RingGrid] = None) -> bool:
+        """Seeds are baselink poses; ``grid`` is not read (the strategies'
+        shared signature)."""
+        return self._register(stamp, features, q_seed_bl, p_seed_bl, txn)
+
+
+# ---------------------------------------------------------------------------
+# Generic-matcher multi-scan registration (ICP / GICP / NDT)
+# ---------------------------------------------------------------------------
+
+
+def _run_matcher(kind: str, src, sv, tgt, tv, q0, p0,
+                 cfg: gm.MatcherConfig) -> gm.MatchResult:
+    if kind == "ICP":
+        return gm.icp_point_to_point(src, sv, tgt, tv, q0, p0, cfg)
+    if kind == "GICP":
+        return gm.gicp_point_to_plane(src, sv, tgt, tv, q0, p0, cfg)
+    if kind == "NDT":
+        return gm.ndt_voxel_gaussian(src, sv, tgt, tv, q0, p0, cfg)
+    raise ValueError(kind)
+
+
+def raw_points_from_grid(grid: RingGrid, max_points: int = 4096,
+                         voxel: float = 0.2, device=None):
+    """Valid grid points → voxel-downsampled fixed-capacity cloud (pts
+    [max_points, 3], valid [max_points]) on ``device`` (the grid's unless
+    named). The downsampling runs on the host in numpy: the first point of
+    each voxel (voxels keyed by a spatial hash, so colliding voxels merge),
+    then an even ``linspace`` thinning to ``max_points``."""
+    xyz, ok = to_numpy(grid.xyz, grid.valid)
+    pts = xyz.reshape(-1, 3)[ok.reshape(-1)]
+    if len(pts) and voxel > 0:
+        cells = np.floor(pts / voxel).astype(np.int64)
+        _, first = np.unique(
+            cells[:, 0] * 73856093 + cells[:, 1] * 19349663
+            + cells[:, 2] * 83492791, return_index=True)
+        pts = pts[np.sort(first)]
+    if len(pts) > max_points:
+        idx = np.linspace(0, len(pts) - 1, max_points).astype(int)
+        pts = pts[idx]
+    out = np.zeros((max_points, 3), np.float32)
+    valid = np.zeros(max_points, bool)
+    out[:len(pts)] = pts
+    valid[:len(pts)] = True
+    out_t, valid_t = to_device_many(
+        (out, valid), grid.xyz.device if device is None else device)
+    return out_t, valid_t
+
+
+class MultiScanMatcherRegistration(_MultiScan):
+    """MultiScanRegistration with a generic matcher (ICP | GICP | NDT) on
+    raw downsampled clouds: the reference's non-LOAM variants
+    (multi_scan_registration.cpp + beam_matching Matchers.h; selected by
+    the ``matcher_type`` of the matcher JSON).
+
+    Same frame conventions and factor emission as
+    MultiScanLoamRegistration; needs the raw scan (``grid=``) in
+    register_new_scan. The clouds live on ``device`` (the card unless
+    asked otherwise)."""
+
+    def __init__(self, params: ScanRegistrationParams = ScanRegistrationParams(),
+                 matcher_type: str = "ICP",
+                 matcher_cfg: gm.MatcherConfig = gm.MatcherConfig(),
+                 num_neighbors: int = 3, lag_duration: float = 10.0,
+                 max_points: int = 4096, downsample_voxel: float = 0.2,
+                 q_bl=None, p_bl=None, device=None):
+        if matcher_type not in ("ICP", "GICP", "NDT"):
+            raise ValueError(f"unknown matcher_type {matcher_type}")
+        self._init_refs(params, num_neighbors, lag_duration, q_bl, p_bl,
+                        device)
+        knn.require_ks(gm.knn_ks(matcher_type, matcher_cfg), self.device,
+                       f"the {matcher_type} matcher")
+        self.matcher_type = matcher_type
+        self.matcher_cfg = matcher_cfg
+        self.max_points = max_points
+        self.downsample_voxel = downsample_voxel
+
+    def _match(self, cloud, r_cloud, r_q, r_p, q_seed, p_seed):
+        (pts, valid), (r_pts, r_valid) = cloud, r_cloud
+        tgt = lie.quat_rotate(r_q[None, :], r_pts) + r_p[None, :]
+        return _run_matcher(self.matcher_type, pts, valid, tgt, r_valid,
+                            q_seed, p_seed, self.matcher_cfg)
+
+    def register_new_scan(self, stamp: float, features, q_seed_bl, p_seed_bl,
+                          txn: Transaction,
+                          grid: Optional[RingGrid] = None) -> bool:
+        if grid is None:
+            raise ValueError("matcher registration needs the raw scan "
+                             "(grid=)")
+        cloud = raw_points_from_grid(grid, self.max_points,
+                                     self.downsample_voxel, self.device)
+        return self._register(stamp, cloud, q_seed_bl, p_seed_bl, txn)
+
+
 # ---------------------------------------------------------------------------
 # Config factory (scan_registration_base.cpp:40-97 Create)
 # ---------------------------------------------------------------------------
@@ -413,11 +614,9 @@ def create_scan_registration(registration_config: Union[str, dict],
                              q_bl=None, p_bl=None, device=None):
     """Factory mirroring ``ScanRegistrationBase::Create``: the strategy from
     ``registration_type`` × the matcher from ``matcher_type``. Returns
-    (strategy, loam_feature_cfg), the strategy on ``device`` (the card
-    unless asked otherwise).
-
-    Ported: SCANTOMAP × LOAM. MULTISCAN and the ICP/GICP/NDT matchers raise
-    NotImplementedError: they come with the MultiScan slice of the port.
+    (strategy, loam_feature_cfg_or_None), the strategy on ``device`` (the
+    card unless asked otherwise). JSON schemas follow
+    beam_slam_launch/config/{registration,matchers}/*.json.
     """
     rcfg = _load_json(registration_config, config_root)
     mcfg = _load_json(matcher_config, config_root)
@@ -446,16 +645,38 @@ def create_scan_registration(registration_config: Union[str, dict],
                     rcfg.get("downsample_voxel_size", 0.0)),
                 device=device), feat_cfg
         if rtype == "MULTISCAN":
-            raise NotImplementedError(
-                "MULTISCAN LOAM registration is not ported yet (the "
-                "MultiScan slice of the port)")
+            return MultiScanLoamRegistration(
+                params, reg_cfg,
+                num_neighbors=int(rcfg.get("num_neighbors", 3)),
+                lag_duration=float(rcfg.get("lag_duration", 10.0)),
+                q_bl=q_bl, p_bl=p_bl, device=device), feat_cfg
         raise ValueError(f"registration type {rtype} not implemented")
 
     if rtype != "MULTISCAN":
         # reference: non-LOAM matchers only exist for MULTISCAN
+        # (scan_registration_base.cpp:75: "only multi scan is implemented")
         raise ValueError(f"{rtype} with matcher {mtype} not implemented")
-    if mtype in ("ICP", "GICP", "NDT"):
-        raise NotImplementedError(
-            f"the {mtype} matcher (lidar/matchers.py) is not ported yet (the "
-            "MultiScan slice of the port)")
-    raise ValueError(f"unknown matcher_type {mtype}")
+
+    if mtype == "ICP":
+        mc = gm.MatcherConfig(
+            iterations=min(int(mcfg.get("max_iter", 50)), 20),
+            max_corr_dist=float(mcfg.get("max_corr", 1.0)))
+        voxel = float(mcfg.get("res", 0.0)) or 0.2
+    elif mtype == "GICP":
+        mc = gm.MatcherConfig(
+            iterations=min(int(mcfg.get("max_iter", 100)), 20),
+            k_normal=max(int(mcfg.get("corr_rand", 10)), 4),
+            max_corr_dist=float(mcfg.get("max_corr", 1.0)))
+        voxel = float(mcfg.get("res", 0.1)) or 0.2
+    elif mtype == "NDT":
+        mc = gm.MatcherConfig(
+            iterations=min(int(mcfg.get("max_iter", 100)), 20),
+            max_corr_dist=float(mcfg.get("res", 1.0)))
+        voxel = max(float(mcfg.get("min_res", 0.05)), 0.05)
+    else:
+        raise ValueError(f"unknown matcher_type {mtype}")
+    return MultiScanMatcherRegistration(
+        params, matcher_type=mtype, matcher_cfg=mc,
+        num_neighbors=int(rcfg.get("num_neighbors", 3)),
+        lag_duration=float(rcfg.get("lag_duration", 10.0)),
+        downsample_voxel=voxel, q_bl=q_bl, p_bl=p_bl, device=device), None

@@ -231,6 +231,19 @@ def knn_topk_split_mirror(query: torch.Tensor, ref: torch.Tensor,
     return torch.where(torch.isinf(d), torch.zeros_like(i), i), d
 
 
+def require_ks(ks, device, what: str) -> None:
+    """Raise unless the kernel is built for every k in ``ks`` — on the card
+    only (the plain version takes any k). Strategies call it at
+    construction, so that a configuration the kernel cannot serve fails
+    there and not at its first launch."""
+    if torch.device(device).type != "cuda":
+        return
+    bad = sorted({int(k) for k in ks} - set(KS))
+    if bad:
+        raise ValueError(f"{what} asks the kNN kernel for k={bad}; it is "
+                         f"built for k in {KS}")
+
+
 def knn_topk(query: torch.Tensor, ref: torch.Tensor, ref_valid: torch.Tensor,
              k: int, cluster: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -288,17 +288,16 @@ class LocalMapperConfig:
         """Instantiate the configured registration strategy on ``device``
         (the card unless asked otherwise) through the factory
         (ScanRegistrationBase::Create analog). Falls back to the in-struct
-        params when no JSON sub-configs are set. MULTISCAN comes with the
-        MultiScan slice of the port and raises until then."""
+        params when no JSON sub-configs are set."""
         if self.registration_config and self.matcher_config:
             return lsr.create_scan_registration(
                 self.registration_config, self.matcher_config,
                 config_root=self.config_root, q_bl=q_bl, p_bl=p_bl,
                 device=device)
         if self.registration_type == "MULTISCAN":
-            raise NotImplementedError(
-                "MULTISCAN registration is not ported yet (the MultiScan "
-                "slice of the port)")
+            return lsr.MultiScanLoamRegistration(
+                self.scan_registration, self.loam_registration,
+                q_bl=q_bl, p_bl=p_bl, device=device), self.loam
         if self.pipelined_registration:
             return lsr.PipelinedScanToMapRegistration(
                 self.scan_registration, self.loam_registration,

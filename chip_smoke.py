@@ -16,6 +16,10 @@
                                  # front end
     python3 chip_smoke.py global # build K1 and K2, then only phase 13:
                                  # global mapping and the map refinement
+    python3 chip_smoke.py localization
+                                 # build K1 and K2, run 13a's global
+                                 # mapper, then only phase 14 on its map:
+                                 # MultiScan and the LidarTracker
     python3 chip_smoke.py knn-counts [cpu|cuda]
                                  # K2's schedule (its mirror) at the LIO
                                  # shapes: the insertions each warp runs
@@ -80,10 +84,20 @@ kernel against its plain PyTorch version on the card:
     request; then run_full_refinement of that map (submap refinement as
     one batched solve of B windows of 256² (K1), alignment, the pose-graph
     and batch optimizations; K2 in every registration) and the refinement
-    CLI on the saved map. Checked against the truth, the reference test's
+    CLI's alignment stage on the saved map. Checked against the truth, the reference test's
     criteria, K1 at (1, 2048) and (B, 256) against its plain version, the
     graph's last problem, a refinement batch and a submap registration card
-    vs CPU; K1 and K2 timed at the phase's shapes.
+    vs CPU; K1 and K2 timed at the phase's shapes;
+  * localization: MultiScan registration (configs/registration/
+    multi_scan.json) with each matcher of configs/matchers/ (LOAM, ICP,
+    GICP, NDT) on hall scans at 16 × 1800, held against the truth and the
+    CPU plain path, K2 at ICP's and GICP's shapes; then a LidarTracker on
+    the first submap of the global mapper's map (its ActiveSubmap), with
+    configs/lio.yaml's smoother (K1 at N = 1024) and the scan-to-map
+    strategy, its reloc requests answered by the GlobalMapper, each scan
+    also through the feature extractor, the deskewer and the aggregation
+    model card vs CPU. Phase 11 writes its IMU samples and scans to a
+    sensor log and runs on what it reads back (the native index).
 
 Phases print one line each; any failure raises and exits non-zero. The
 line before the last two is the kernels' JSON record, then the card's name
@@ -145,6 +159,7 @@ MOM_DIFF_FRAC, MOM_EDGE_RTOL = 1e-3, 1e-6
 # Published H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and
 # fp32 FLOP/s outside the tensor cores.
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
+KNN_LIB_BLOCK = 16384   # queries per cdist + topk call of the yardstick
 
 
 # The LIO+IMU session (phase 10) at configs/lio.yaml's capacities: the
@@ -207,6 +222,38 @@ GLOBAL_JSON = "global_map/global_map.json"
 GLOBAL_RECT, GLOBAL_ORIGIN, GLOBAL_EXTRA = (20.0, 8.0), (-10.0, -4.0), 4
 GLOBAL_SEED, GLOBAL_DRIFT = 13, (0.5, 2.0)
 RELOC_OFF, RELOC_TOL = (0.5, 3.0), (0.1, 0.02)   # m, degrees; m, rad
+# Phase 14, localization. 14a: MultiScan registration (configs/registration/
+# multi_scan.json: 3 neighbours) with each matcher of configs/matchers/ on
+# phase 13's hall at 16 × 1800, MULTISCAN_SCANS poses ~0.3 m apart (numpy
+# seed MULTISCAN_SEED perturbs the seeds as phase 6 does); every factor
+# within the JAX tests' bounds for that matcher (m, rad): LOAM phase 6's,
+# ICP and GICP tests/test_registration_factory.py:93-97, NDT
+# tests/test_matchers.py:38-53. 14b: a LidarTracker on the first submap of
+# 13a's map (its ActiveSubmap), lio.yaml's smoother (K1 at (1, 1024)) and
+# the configs/ scan-to-map strategy, fed LOCALIZE_SCANS hall scans 0.5 m
+# apart on a second pass along the first side, off the keyframes, reloc
+# requests answered by the GlobalMapper; card vs CPU within LOCAL_CPU_TOL
+# m for the feature extractor's, deskewer's and aggregation's points.
+MULTISCAN_JSON = "registration/multi_scan.json"
+MULTISCAN_MATCHERS = {"loam_vlp16": (0.05, 0.02), "icp": (0.1, 0.05),
+                      "gicp": (0.1, 0.05), "ndt": (0.15, 0.02)}
+MULTISCAN_SCANS, MULTISCAN_SEED = 6, 17
+# ICP and NDT miss those bounds on these scans in the JAX package as in the
+# port (ICP 0.177 m, NDT 0.168 m / 0.028 rad; ROADMAP Queue 3): their
+# factors are held instead to the JAX package's CPU factors, which
+# tests/test_torch_multiscan_hall.py writes to this file and checks, within
+# the registration agreement bounds (CARD_CPU_DP, CARD_CPU_ROT).
+MULTISCAN_JAX = ROOT / "tests" / "data" / "multiscan_hall_jax.json"
+LOCALIZE_SCANS, LOCALIZE_SEED, LOCALIZE_DT = 8, 19, 0.5
+LOCAL_CPU_TOL = 1e-5
+# Phase 12c solves the VIO mapper's last dispatched problem to convergence
+# (phase 11's cap of 40 LM steps with early exit). Two float32 solves of it
+# end at different points of a flat valley, whose costs differ by about
+# COST_RTOL even under one exact evaluator, so the card is held step by
+# step instead: every LM step of the card's solve is also taken on the CPU
+# plain path from the same state and λ, and both trial states are costed
+# by the CPU plain path in float64 (_lockstep_card_vs_cpu).
+SOLVED_LM_STEPS = 40
 
 
 def lio_smoother_config():
@@ -670,16 +717,16 @@ def _gt_rel(poses, i, j):
     return _pose_delta(poses[i][0], poses[i][1], poses[j][0], poses[j][1])
 
 
-def _check_factors(rels, poses, stamps, label):
-    """Every chained factor within the ground-truth bounds; returns the
-    worst (trans, rot) error."""
+def _check_factors(rels, poses, stamps, label, bounds=(GT_TRANS, GT_ROT)):
+    """Every relative factor within the ground-truth ``bounds`` (m, rad);
+    returns the worst (trans, rot) error."""
     worst = (0.0, 0.0)
     for f in rels:
         i, j = stamps.index(f.stamp_i), stamps.index(f.stamp_j)
         dq_gt, dp_gt = _gt_rel(poses, i, j)
         e_p = float(np.linalg.norm(np.asarray(f.dp) - dp_gt))
         e_r = _so3_err(f.dq, dq_gt)
-        if not (e_p < GT_TRANS and e_r < GT_ROT) or f.sensor != "lidar":
+        if not (e_p < bounds[0] and e_r < bounds[1]) or f.sensor != "lidar":
             raise RuntimeError(f"{label}: factor {i}->{j} off ground truth by "
                                f"{e_p:.4f} m / {e_r:.4f} rad")
         worst = (max(worst[0], e_p), max(worst[1], e_r))
@@ -1149,19 +1196,21 @@ def _session_trajectory(device):
         freq_r=(0.8, 1.2, 0.6), device=device)
 
 
-def _busy_ms(fn):
+def _busy_ms(fn, marker="chol_solve"):
     """(device ms, device ops) of one call of ``fn`` under the profiler:
     kernels and copies on the card's clock (one stream, no overlap); None
-    when the profiler lost the window's events (it now and then does).
-    Only the card's activity is traced: the host's ops are not read, and
-    turning tens of thousands of them into events took ~1 ms each."""
+    when the profiler lost the window's events (it now and then does: no
+    event whose name holds ``marker``, K1's kernel by default; any event
+    for ``marker=""``). Only the card's activity is traced: the host's ops
+    are not read, and turning tens of thousands of them into events took
+    ~1 ms each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not any("chol_solve" in e.name for e in on_dev):  # K1's kernel
+    if not any(marker in e.name for e in on_dev):
         return None
     return sum(e.time_range.elapsed_us() for e in on_dev) / 1e3, len(on_dev)
 
@@ -1448,6 +1497,95 @@ def _mapper_config(mode):
     return cfg
 
 
+def _through_sensor_log(events, grids, device, card=""):
+    """Phase 14c, inside phase 11: the session's IMU samples and scans
+    (``grids``, stamp → RingGrid) written to a sensor log in a temporary
+    directory and read back (pipeline/sensor_log: the host C++ library's
+    index, held equal to the numpy index; scans decoded on ``device``).
+    Every record must equal its event, and imu_batch the IMU samples.
+    Returns the events with the decoded records in their place (``grids``
+    updated in place), which phase 11's frame loop then runs on."""
+    from beam_slam_tpu_torch.ops import native
+    from beam_slam_tpu_torch.pipeline import sensor_log as slog
+    cuda = device is None
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    if not native.native_available():
+        raise RuntimeError("[14c] no g++ on PATH: the log's native index "
+                           "cannot be built")
+    kept = [ev for ev in events if ev[0] in ("imu", "scan")]
+    imu_ev = [ev for ev in kept if ev[0] == "imu"]
+    write_ms, read_ms, records = [], [], []
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "session.bslg")
+        with slog.SensorLogWriter(path) as w:
+            for ev in kept:
+                if ev[0] == "imu":
+                    w.add_imu(ev[1], ev[2], ev[3])
+                    continue
+                sync()
+                t0 = time.perf_counter()
+                w.add_scan(ev[1], grids[ev[1]])
+                write_ms.append(1e3 * (time.perf_counter() - t0))
+        size = Path(path).stat().st_size
+        index = slog.index_log(path)
+        for a, b in zip(index[:4], slog.index_log_numpy(index[4])):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise RuntimeError("[14c] the native index differs from the "
+                                   "numpy index")
+        reader = slog.read_log(path, device)
+        while True:
+            t0 = time.perf_counter()
+            rec = next(reader, None)
+            if rec is None:
+                break
+            if rec[0] == slog.T_SCAN:
+                sync()
+                read_ms.append(1e3 * (time.perf_counter() - t0))
+            records.append(rec)
+        t_b, w_b, a_b = slog.imu_batch(path)
+    if len(records) != len(kept):
+        raise RuntimeError(f"[14c] {len(records)} records for {len(kept)} "
+                           f"events")
+    out, it = [], iter(records)
+    for ev in events:
+        if ev[0] not in ("imu", "scan"):
+            out.append(ev)
+            continue
+        rtype, stamp, payload = next(it)
+        kind = {slog.T_IMU: "imu", slog.T_SCAN: "scan"}.get(rtype)
+        if (kind, stamp) != (ev[0], ev[1]):
+            raise RuntimeError(f"[14c] record {(rtype, stamp)} for event "
+                               f"{ev[:2]}")
+        if kind == "imu":
+            if not (np.array_equal(payload[0], ev[2])
+                    and np.array_equal(payload[1], ev[3])):
+                raise RuntimeError(f"[14c] IMU record at {stamp} differs")
+            out.append(("imu", stamp, *payload))
+            continue
+        g = grids[stamp]
+        if not all(torch.equal(getattr(payload, f), getattr(g, f))
+                   for f in ("xyz", "time", "valid")):
+            raise RuntimeError(f"[14c] scan record at {stamp} differs")
+        grids[stamp] = payload
+        out.append(("scan", stamp, payload))
+    if not (np.array_equal(t_b, [ev[1] for ev in imu_ev])
+            and np.array_equal(w_b, np.stack([ev[2] for ev in imu_ev]))
+            and np.array_equal(a_b, np.stack([ev[3] for ev in imu_ev]))):
+        raise RuntimeError("[14c] imu_batch differs from the IMU samples")
+    print(f"[14c] the session through a sensor log: {len(imu_ev)} IMU "
+          f"samples and {len(write_ms)} scans, {size / 2 ** 20:.1f} MiB; "
+          f"read back through the native index (equal to the numpy "
+          f"index), every record equal to its event, imu_batch equal; "
+          f"a scan written in {statistics.median(write_ms):.2f} ms and read "
+          f"in {statistics.median(read_ms):.2f} ms (median, host clock, the "
+          f"card synced; {card}); the frame loop below runs on the decoded "
+          f"records", flush=True)
+    return out
+
+
 def run_mapper(card="", device="cuda", duration_s=MAPPER_S, mode="LIO",
                tag="11"):
     """Phases 11, 12a and 12c: the LocalMapper of the mode's pipeline YAML
@@ -1502,6 +1640,8 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S, mode="LIO",
             q_wl = lie_np.quat_mul(gt_at[t][0], tss.Q_BL)
             p_wl = gt_at[t][1] + lie_np.quat_rotate(gt_at[t][0], tss.P_BL)
             grids[t] = _observed_grid(cloud, q_wl, p_wl, dev)
+    if vendored:   # 14c: the session's IMU and scans through the log
+        events = _through_sensor_log(events, grids, dev, card)
     frames, cur = [], []
     for ev in events:   # one frame: its IMU samples, sensors and tick
         cur.append(ev)
@@ -1797,7 +1937,10 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S, mode="LIO",
     torch.cuda.synchronize()
     sys_err = float((x - x_ref).abs().max())
     # that problem solved on the card and on the CPU plain path, with the
-    # mapper's own solver options
+    # mapper's own solver options; VIO's solved to convergence
+    solved = mode == "VIO"
+    if solved:
+        opts = opts._replace(max_iterations=SOLVED_LM_STEPS, early_exit=True)
     out, diag = gn.solve(window, fams, losses, opts)
     t_cpu = time.perf_counter()
     out_cpu, diag_cpu = gn.solve(window.to("cpu"),
@@ -1805,7 +1948,7 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S, mode="LIO",
                                  opts)
     t_cpu = time.perf_counter() - t_cpu
     c1, c1_cpu = float(diag.final_cost), float(diag_cpu.final_cost)
-    gap = abs(c1 - c1_cpu) / max(c1_cpu, 1e-30)
+    gap = _rel_gap(c1, c1_cpu)
     dp = float((out.imu.p.cpu() - out_cpu.imu.p).abs().max())
     print(f"[{tag}] K1 on the mapper's reduced system "
           f"{tuple(Hp.shape[1:])} ({int(window.landmarks.active.sum())} "
@@ -1816,16 +1959,78 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S, mode="LIO",
           f"{float(diag.initial_cost):.6g} -> {c1:.6g} / {c1_cpu:.6g}, "
           f"accepted steps "
           f"{int(diag.iterations)} / {int(diag_cpu.iterations)} (rel gap "
-          f"{gap:.2e}, bound {COST_RTOL}), max|dp| {dp:.2e} m (bound "
-          f"{DP_TOL}); the CPU solve {t_cpu:.1f} s", flush=True)
+          + (f"{gap:.2e}, not held: two float32 solves; under the float64 "
+             f"evaluator "
+             f"{_rel_gap(*_cost64((out, out_cpu), fams, losses)):.2e})"
+             if solved else f"{gap:.2e}, bound {COST_RTOL})")
+          + f", max|dp| {dp:.2e} m (bound {DP_TOL}); the CPU solve "
+          f"{t_cpu:.1f} s", flush=True)
     if Hp.shape[1:] != (1024, 1024) or not sys_err <= X_TOL * float(
             x_ref.abs().max()):
         raise RuntimeError(f"[{tag}] K1 on the mapper's reduced system "
                            f"disagrees")
-    if not (gap <= COST_RTOL and dp <= DP_TOL):
+    if solved:
+        gaps, dps, ms = _lockstep_card_vs_cpu(window, fams, losses, opts)
+        print(f"[{tag}] the same problem, each of the card's {len(gaps)} LM "
+              f"steps to convergence also taken on the CPU plain path from "
+              f"the card's state: trial costs (float64 evaluator) worst rel "
+              f"gap {max(gaps):.2e} (bound {COST_RTOL}), trial positions "
+              f"worst max|dp| {max(dps):.2e} m (bound {DP_TOL}); "
+              f"{ms:.0f} ms a step", flush=True)
+        cost_ok = all(x <= COST_RTOL for x in gaps) and all(
+            x <= DP_TOL for x in dps)
+    else:
+        cost_ok = gap <= COST_RTOL
+    if not (cost_ok and dp <= DP_TOL):
         raise RuntimeError(f"[{tag}] the mapper's problem on the card "
                            f"disagrees with the CPU plain path")
     return dict(launches=launches)
+
+
+def _cost64(windows, fams, losses):
+    """The problem's cost at each window under one evaluator, the CPU plain
+    path in float64 (the float32 states cast up)."""
+    from beam_slam_tpu_torch.solver import gauss_newton as gn
+
+    def f64(s):
+        return s.map(lambda t: t.double() if t.is_floating_point() else t)
+    fams64 = tuple(f64(f.to("cpu")) for f in fams)
+    return [float(gn.total_cost(f64(w.to("cpu")), fams64, losses))
+            for w in windows]
+
+
+def _rel_gap(c, c_ref):
+    return abs(c - c_ref) / max(c_ref, 1e-30)
+
+
+def _lockstep_card_vs_cpu(window, fams, losses, opts):
+    """The problem solved on the card under ``opts`` (LM with early exit),
+    each step also taken on the CPU plain path from the card's state and λ.
+    Returns, per step, the relative gap of the two trial states' costs under
+    _cost64 and their largest position gap (m), and the ms per step."""
+    from beam_slam_tpu_torch.solver import gauss_newton as gn
+    fams_cpu = tuple(f.to("cpu") for f in fams)
+
+    def step(w, fs, lam):   # one LM step; also returns its trial state
+        seen = []
+
+        def assemble(x):
+            seen.append(x)
+            return gn.assemble_normal_equations(x, fs, losses)
+        out, diag = gn.lm_loop(w, assemble, 1,
+                               opts._replace(initial_lambda=lam))
+        return out, diag, seen[1]
+    lam, gaps, dps = opts.initial_lambda, [], []
+    t0 = time.perf_counter()
+    for _ in range(opts.max_iterations):
+        out, diag, trial = step(window, fams, lam)
+        _, _, trial_cpu = step(window.to("cpu"), fams_cpu, lam)
+        gaps.append(_rel_gap(*_cost64((trial, trial_cpu), fams, losses)))
+        dps.append(float((trial.imu.p.cpu() - trial_cpu.imu.p).abs().max()))
+        window, lam = out, float(diag.final_lambda)
+        if bool(diag.converged):
+            break
+    return gaps, dps, 1e3 * (time.perf_counter() - t0) / len(gaps)
 
 
 def _texture(rng, H, W, n_blobs):
@@ -2131,46 +2336,20 @@ def _card_vs_cpu(label, solve, problem, per_window=False):
 def _global_knn_times(match, query, res, card):
     """K2 at the submap-to-submap registration's shapes: the query
     submap's aggregated features placed by the registration's result
-    against the match submap's, edges (k=5) and surfaces (k=10). The
-    library yardstick (cdist + topk) runs in blocks of 16384 queries: one
-    call at these shapes would need a Q × R distance matrix of ~40 GB."""
+    against the match submap's, edges (k=5) and surfaces (k=10)."""
     from beam_slam_tpu_torch.core import lie
     from beam_slam_tpu_torch.device import to_device_many
-    from beam_slam_tpu_torch.ops import knn
     me, mev, ms_, msv = match.aggregate_features_submap_frame()
     qe, _, qs, _ = query.aggregate_features_submap_frame()
     dq, dp = to_device_many((res.dq, res.dp), me.device)
-    out = {}
-    for label, q_pts, r, v, k in (("edges", qe, me, mev, 5),
-                                  ("surfaces", qs, ms_, msv, 10)):
-        q = (lie.quat_rotate(dq[None], q_pts) + dp[None]).contiguous()
-        r, v = r.contiguous(), v.contiguous()
-        err = _knn_check(knn, q, r, v, k, f"submap {label}")
-        Q, R, n_valid = q.shape[0], r.shape[0], int(v.sum())
-        k_ms, plain_ms = _paired_ms(lambda: knn.knn_topk(q, r, v, k),
-                                    lambda: knn.knn_topk_reference(q, r, v, k),
-                                    reps=3)
-        lib_ms = _event_ms(lambda: [torch.topk(torch.cdist(
-            qc, r).masked_fill_(~v, float("inf")), k, largest=False)
-            for qc in torch.split(q, 16384)], 3)
-        try:
-            dev_ms, how = _device_ms(lambda: knn.knn_topk(q, r, v, k),
-                                     "knn_topk_kernel", reps=5), "profiler"
-        except RuntimeError:   # it lost the events: a call's CUDA events,
-            dev_ms, how = k_ms, "CUDA events"   # at ms scale the same
-        bound = _knn_bound(Q, R, n_valid, k)
-        out[label] = dict(ms=dev_ms, call_ms=k_ms, plain=plain_ms, lib=lib_ms,
-                          bound=bound, err=err, shape=(Q, R, k))
-        print(f"[13] K2 at the submap registration's {label} ({Q}, {R}, "
-              f"k={k}), {n_valid} valid refs: kernel {dev_ms:.4f} ms on the "
-              f"device ({how}), {k_ms:.4f} ms a call (CUDA events); plain "
-              f"{plain_ms:.3f} ms, cdist+topk in blocks {lib_ms:.3f} ms (CUDA "
-              f"events); bound {bound[0]:.4f} ms ({bound[1]}) ({card})",
-              flush=True)
-    return out
+    return {label: _knn_times("13", f"the submap registration's {label}",
+                              lie.quat_rotate(dq[None], q_pts) + dp[None],
+                              r, v, k, card, reps=3)
+            for label, q_pts, r, v, k in (("edges", qe, me, mev, 5),
+                                          ("surfaces", qs, ms_, msv, 10))}
 
 
-def run_global(card="", device="cuda", width=WIDTH):
+def run_global(card="", device="cuda", width=WIDTH, online_only=False):
     """Phase 13, global mapping on the card. 13a: the GlobalMapper of
     configs/global_map/global_map.json at its default graph capacities fed
     phase 13's chunks, a loop closure on the last submap and a solve (the
@@ -2179,11 +2358,16 @@ def run_global(card="", device="cuda", width=WIDTH):
     offline refinement of that map (submap refinement, alignment, the
     pose-graph optimization, the batch optimization) and the refinement
     CLI, on the card, on the saved map. Every check raises. Returns the
-    launch counts and the kernels' records. ``device="cpu"`` (with a
-    smaller ``width``) rehearses the phase
-    off the card: no profiler, no kernel comparison or times, no CLI."""
+    launch counts and the kernels' records, and in ``loc`` what phase 14b
+    localizes against: the ActiveSubmap of submap 0 as 13a left it, the
+    GlobalMapper, the truth and each submap's first chunk.
+    ``online_only`` stops after 13a. ``device="cpu"`` (with a smaller
+    ``width``) rehearses the phase off the card: no profiler, no kernel
+    comparison or times, no CLI."""
     from beam_slam_tpu_torch.core import lie_np
     from beam_slam_tpu_torch.global_mapping import refinement as tref
+    from beam_slam_tpu_torch.global_mapping.active_submap import \
+        ActiveSubmap
     from beam_slam_tpu_torch.global_mapping.global_map import (
         GlobalMap, global_map_from_config)
     from beam_slam_tpu_torch.global_mapping.submap import Submap
@@ -2336,6 +2520,12 @@ def run_global(card="", device="cuda", width=WIDTH):
         elif cuda:
             print("[13a] the flush's solve under the profiler: the profiler "
                   "lost its events; device time not measured", flush=True)
+        active = ActiveSubmap(device=dev)
+        active.update_from_submap(subs[0])
+        loc = dict(gm=gm, truth=truth, first_k=first_k, active=active)
+        if online_only:
+            return dict(launches=dict(k1=online_l[0], k2=online_l[1]),
+                        loc=loc)
 
         # ---- 13b. the offline refinement: run_full_refinement's four
         # stages in its order, each timed and counted
@@ -2402,7 +2592,7 @@ def run_global(card="", device="cuda", width=WIDTH):
         raise RuntimeError(f"13: K1 {total_l[0]} launches for {steps} LM "
                            f"steps, K2 {total_l[1]} for {reg_steps} "
                            f"registration steps")
-    out = dict(launches=dict(k1=total_l[0], k2=total_l[1]))
+    out = dict(launches=dict(k1=total_l[0], k2=total_l[1]), loc=loc)
     if not cuda:
         return out
 
@@ -2424,7 +2614,10 @@ def run_global(card="", device="cuda", width=WIDTH):
                            f"{out['k1_batch']['shape']}")
 
     # the refinement CLI, on the card, on the map saved to a directory: in
-    # its own process, while this one holds a registration on the CPU
+    # its own process, while this one holds a registration on the CPU. It
+    # runs one stage, the alignment: run_full_refinement has just run them
+    # all, and the CLI's submap refinement took 52–63 s of the script's
+    # 1200 s limit for nothing its in-process run did not show
     tmp = tempfile.TemporaryDirectory()
     gm.save(tmp.name + "/map")
     t0 = time.perf_counter()
@@ -2432,7 +2625,7 @@ def run_global(card="", device="cuda", width=WIDTH):
         [sys.executable, "-m",
          "beam_slam_tpu_torch.tools.global_map_refinement_main",
          "--globalmap_dir", tmp.name + "/map", "--output_path",
-         tmp.name + "/out", "--run_submap_refinement"], cwd=ROOT,
+         tmp.name + "/out", "--run_submap_alignment"], cwd=ROOT,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         # one submap-to-submap registration, card vs CPU: the reloc query
@@ -2473,11 +2666,11 @@ def run_global(card="", device="cuda", width=WIDTH):
                 for s2, s1 in zip(back.submaps, subs)
                 for a, b in zip(s2.lidar_keyframes, s1.lidar_keyframes))
     if len(back.submaps) != n_sub or not np.isfinite(moved) or \
-            not np.isfinite(cli_stats["refinement_cost"]):
+            not 0 <= cli_stats["submaps_aligned"] < n_sub:
         raise RuntimeError(f"13: the CLI's map: {len(back.submaps)} "
                            f"submaps, moved {moved}, {cli_stats}")
     print(f"[13b] the refinement CLI (python -m beam_slam_tpu_torch.tools."
-          f"global_map_refinement_main --run_submap_refinement, on the card) "
+          f"global_map_refinement_main --run_submap_alignment, on the card) "
           f"on the saved map: {cli_s:.1f} s of wall with its start-up, beside "
           f"the registration on the CPU; stats {cli_stats}; its map loads "
           f"back, keyframes moved up to {moved:.4f} m ({card})", flush=True)
@@ -2486,6 +2679,395 @@ def run_global(card="", device="cuda", width=WIDTH):
     ci, qi, res = gm.map._loop_closures[-1]
     out["k2"] = _global_knn_times(subs[ci], subs[qi], res, card)
     return out
+
+
+def _multiscan_poses(n):
+    """Phase 14a's true poses in the HALL: along the loop's first side,
+    ~0.3 m and ~0.6° of yaw apart, with some sway."""
+    from beam_slam_tpu_torch.core import lie_np
+    x0, y0 = GLOBAL_ORIGIN
+    return [(lie_np.so3_exp_quat(np.array(
+        [0.004 * np.sin(i), 0.003 * (np.cos(i) - 1.0), 0.01 * i],
+        np.float32)),
+        np.array([x0 + 4.0 + 0.3 * i, y0 + 0.05 * np.sin(0.7 * i),
+                  0.005 * i], np.float32)) for i in range(n)]
+
+
+def _on(x, device):
+    """A FeatureCloud, or a tuple of tensors, on ``device``."""
+    return x.to(device) if hasattr(x, "to") else tuple(t.to(device)
+                                                       for t in x)
+
+
+def _knn_times(tag, label, q, r, v, k, card, reps=20):
+    """K2 at a path's shape against its plain version (phase 7's checks),
+    timed against the plain version, ``cdist`` + ``topk`` and its bound.
+    The library yardstick runs in blocks of KNN_LIB_BLOCK queries: one
+    call at a submap's shape would need a Q × R distance matrix of
+    ~40 GB."""
+    from beam_slam_tpu_torch.ops import knn
+    q, r, v = q.contiguous(), r.contiguous(), v.contiguous()
+    err = _knn_check(knn, q, r, v, k, label)
+    Q, R, n_valid = q.shape[0], r.shape[0], int(v.sum())
+    k_ms, plain_ms = _paired_ms(lambda: knn.knn_topk(q, r, v, k),
+                                lambda: knn.knn_topk_reference(q, r, v, k),
+                                reps=reps)
+    lib_ms = _event_ms(lambda: [torch.topk(torch.cdist(
+        qc, r).masked_fill_(~v, float("inf")), k, largest=False)
+        for qc in torch.split(q, KNN_LIB_BLOCK)], reps)
+    try:
+        dev_ms, how = _device_ms(lambda: knn.knn_topk(q, r, v, k),
+                                 "knn_topk_kernel", reps=reps), "profiler"
+    except RuntimeError:   # it lost the events: a call's CUDA events,
+        dev_ms, how = k_ms, "CUDA events"   # at ms scale the same
+    bound = _knn_bound(Q, R, n_valid, k)
+    print(f"[{tag}] K2 at {label} ({Q}, {R}, k={k}), {n_valid} valid refs: "
+          f"kernel {dev_ms:.4f} ms on the device ({how}), {k_ms:.4f} ms a "
+          f"call (CUDA events); plain {plain_ms:.3f} ms, cdist+topk (in "
+          f"blocks of {KNN_LIB_BLOCK} queries) {lib_ms:.3f} ms (CUDA "
+          f"events); bound {bound[0]:.4f} ms ({bound[1]}) ({card})",
+          flush=True)
+    return dict(ms=dev_ms, call_ms=k_ms, plain=plain_ms, lib=lib_ms,
+                bound=bound, err=err, shape=(Q, R, k))
+
+
+def run_multiscan(card="", device="cuda"):
+    """Phase 14a: MultiScan registration from configs/ with each matcher
+    of MULTISCAN_MATCHERS on MULTISCAN_SCANS hall scans at 16 × 1800 (K2 in
+    LOAM, ICP and GICP; NDT's grid needs no search). Every factor within
+    its matcher's bounds of the truth; one registration per matcher card
+    vs the CPU plain path; K2 at ICP's and GICP's shapes against its plain
+    version. Returns the K2 launches and records. ``device="cpu"``
+    rehearses the phase off the card: no profiler, no comparison."""
+    from beam_slam_tpu_torch.core import lie
+    from beam_slam_tpu_torch.lidar import features as feat
+    from beam_slam_tpu_torch.lidar import scan_registration as tsr
+    from beam_slam_tpu_torch.ops import knn
+    from beam_slam_tpu_torch.solver.smoother import Transaction
+
+    cuda = device == "cuda"
+    dev = None if cuda else device   # entry points: None is the card
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    poses = _multiscan_poses(MULTISCAN_SCANS)
+    rng = np.random.default_rng(MULTISCAN_SEED)
+    seeds = [poses[0]] + [_perturbed(q, p, rng) for q, p in poses[1:]]
+    stamps = [0.1 * i for i in range(MULTISCAN_SCANS)]
+    grids = [_hall_grid(q, p, dev, WIDTH, seed=100 + i)
+             for i, (q, p) in enumerate(poses)]
+    out = dict(launches=0, k2={})
+    for name, bounds in MULTISCAN_MATCHERS.items():
+        strat, feat_cfg = tsr.create_scan_registration(
+            MULTISCAN_JSON, f"matchers/{name}.json",
+            config_root=str(ROOT / "configs"), device=dev)
+        fcs = [feat.extract_features(g, feat_cfg) if feat_cfg else None
+               for g in grids]
+        sync()
+        knn.knn_topk.launches = 0
+        rels, ms, n_reg = [], [], 0
+        for i in range(MULTISCAN_SCANS):
+            txn = Transaction(stamp=stamps[i])
+            sync()
+            t0 = time.perf_counter()
+            ok = strat.register_new_scan(stamps[i], fcs[i], *seeds[i], txn,
+                                         grid=grids[i])
+            sync()
+            if i > 0:
+                ms.append(1e3 * (time.perf_counter() - t0))
+            if not ok:
+                raise RuntimeError(f"14a {name}: scan {i} was not accepted")
+            n_reg += min(i, strat.num_neighbors)
+            rels += txn.rel_poses
+        launches = knn.knn_topk.launches
+        out["launches"] += launches
+        if len(rels) != n_reg:
+            raise RuntimeError(f"14a {name}: {len(rels)} factors for "
+                               f"{n_reg} registrations")
+        held = json.loads(MULTISCAN_JAX.read_text()).get(name)
+        if held is None:
+            worst = _check_factors(rels, poses, stamps, f"14a {name}",
+                                   bounds)
+            verdict = (f"worst {worst[0]:.4f} m / {worst[1]:.4f} rad off "
+                       f"the truth (bounds {bounds[0]} / {bounds[1]})")
+        else:
+            worst = _check_factors(rels, poses, stamps, f"14a {name}",
+                                   (np.inf, np.inf))
+            gaps = [(float(np.linalg.norm(f.dp - np.asarray(h[3]))),
+                     _so3_err(f.dq, np.asarray(h[2], np.float32)))
+                    for f, h in zip(rels, held)]
+            if [(stamps.index(f.stamp_i), stamps.index(f.stamp_j))
+                    for f in rels] != [tuple(h[:2]) for h in held] or not (
+                    max(g[0] for g in gaps) <= CARD_CPU_DP
+                    and max(g[1] for g in gaps) <= CARD_CPU_ROT):
+                raise RuntimeError(f"14a {name}: the factors differ from "
+                                   f"the JAX package's by {gaps}")
+            verdict = (f"within {max(g[0] for g in gaps):.2e} m / "
+                       f"{max(g[1] for g in gaps):.2e} rad of the JAX "
+                       f"package's CPU factors (bounds {CARD_CPU_DP} / "
+                       f"{CARD_CPU_ROT}); worst {worst[0]:.4f} m / "
+                       f"{worst[1]:.4f} rad off the truth, as the JAX "
+                       f"package's (its bounds {bounds[0]} / {bounds[1]} "
+                       f"are missed by both)")
+        print(f"[14a] MultiScan + {name} ({type(strat).__name__}, "
+              f"{strat.num_neighbors} neighbours) at {N_RINGS}x{WIDTH}: "
+              f"{MULTISCAN_SCANS} scans accepted, {len(rels)} factors, "
+              f"{verdict}; register_new_scan median "
+              f"{statistics.median(ms):.2f} ms over {len(ms)} (host clock, "
+              f"synchronised; {card}); K2 launches {launches}, "
+              f"{launches / n_reg:.1f} a registration", flush=True)
+        if not cuda:
+            continue
+
+        # the last scan against its newest neighbour, card vs CPU
+        _, r_q, r_p, r_cloud = strat.refs[-2]
+        cloud = strat.refs[-1][3]
+        q_s, p_s = strat._lidar_from_baselink(*seeds[-1])
+
+        def match(d):
+            return strat._match(_on(cloud, d), _on(r_cloud, d),
+                                *tsr._pose_to_device(r_q, r_p, d),
+                                *tsr._pose_to_device(q_s, p_s, d))
+        wall = []
+
+        def timed():
+            t0 = time.perf_counter()
+            match(strat.device)
+            torch.cuda.synchronize()
+            wall.append(1e3 * (time.perf_counter() - t0))
+        busy = _busy_ms(timed, marker="")
+        res, res_cpu = match(strat.device), match("cpu")
+        dp = float(torch.linalg.vector_norm(res.p.cpu() - res_cpu.p))
+        dr = _so3_err(res.q.cpu().numpy(), res_cpu.q.numpy())
+        same = bool(res.converged) == bool(res_cpu.converged)
+        idle = ("device time not measured (the profiler lost its events)"
+                if busy is None else
+                f"device time {busy[0]:.2f} ms of {wall[0]:.1f} ms wall "
+                f"under the profiler ({busy[1]} device ops), idle "
+                f"{100 * (1 - busy[0] / wall[0]):.1f}%")
+        print(f"[14a] {name}: one registration, card vs CPU plain path: "
+              f"|dp|={dp:.2e} m, rotation {dr:.2e} rad (bounds "
+              f"{CARD_CPU_DP} / {CARD_CPU_ROT}), converged "
+              f"{bool(res.converged)} / {bool(res_cpu.converged)}; {idle} "
+              f"({card})", flush=True)
+        if not (dp <= CARD_CPU_DP and dr <= CARD_CPU_ROT and same):
+            raise RuntimeError(f"14a {name}: the registration on the card "
+                               f"disagrees with the CPU plain path")
+        if name in ("icp", "gicp"):
+            pts, valid = cloud
+            r_pts, r_valid = r_cloud
+            q_r, p_r = tsr._pose_to_device(r_q, r_p, strat.device)
+            query = lie.quat_rotate(res.q[None], pts) + res.p[None]
+            ref = lie.quat_rotate(q_r[None], r_pts) + p_r[None]
+            k = 1 if name == "icp" else strat.matcher_cfg.k_normal
+            out["k2"][name] = _knn_times("14a", f"{name}'s correspondences",
+                                         query, ref, r_valid, k, card)
+    return out
+
+
+def run_localize(loc, card="", device="cuda"):
+    """Phase 14b: a LidarTracker localizing on 13a's map. Its active submap
+    is submap 0 as 13a left it (``loc``), its smoother lio.yaml's (the sync
+    tick; K1 at (1, 1024) every LM step), its local strategy the configs/
+    scan-to-map one, its reloc requests answered by the GlobalMapper. It is
+    fed LOCALIZE_SCANS hall scans 0.5 m apart in submap 0's first half,
+    0.2 m to the side of its keyframes, seeds perturbed as phase 6's; each scan also goes through the
+    LidarFeatureExtractor, the LidarScanDeskewer and LidarAggregation
+    (a moving frame initializer), each card vs CPU. Returns the launches
+    and K2's records at the tracker's scan-to-submap shapes."""
+    from beam_slam_tpu_torch.core import lie, lie_np
+    from beam_slam_tpu_torch.lidar import features as feat
+    from beam_slam_tpu_torch.lidar import registration as treg
+    from beam_slam_tpu_torch.lidar import scan_registration as tsr
+    from beam_slam_tpu_torch.models.lidar_aggregation import \
+        LidarAggregation
+    from beam_slam_tpu_torch.models.lidar_feature_extractor import \
+        LidarFeatureExtractor
+    from beam_slam_tpu_torch.models.lidar_scan_deskewer import \
+        LidarScanDeskewer
+    from beam_slam_tpu_torch.models.lidar_tracker import LidarTracker
+    from beam_slam_tpu_torch.ops import cholesky as chol
+    from beam_slam_tpu_torch.ops import knn
+    from beam_slam_tpu_torch.solver.smoother import FixedLagSmoother
+
+    cuda = device == "cuda"
+    dev = None if cuda else device   # entry points: None is the card
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    gm, truth, first_k, active = (loc[k] for k in ("gm", "truth", "first_k",
+                                                    "active"))
+    # 0.5 m apart from half a metre past submap 0's origin, 0.2 m to the
+    # side of its keyframes: the nearest submap origin stays submap 0's, so
+    # the reloc search ranks it first and answers in its frame (the graph
+    # holds it at the truth; a later submap's frame carries the graph's
+    # error: 0.169 m in the CPU rehearsal at 16 × 450)
+    q0, p0 = truth[first_k[0]]
+    poses = []
+    for i in range(LOCALIZE_SCANS):
+        dq = lie_np.so3_exp_quat(np.array([0, 0, 0.02 * np.sin(i)],
+                                          np.float32))
+        poses.append((lie_np.quat_mul(q0, dq).astype(np.float32),
+                      (p0 + lie_np.quat_rotate(q0, np.array(
+                          [0.5 + 0.5 * i, 0.2, 0.0], np.float32))).astype(
+                          np.float32)))
+    rng = np.random.default_rng(LOCALIZE_SEED)
+    seeds = [poses[0]] + [_perturbed(q, p, rng) for q, p in poses[1:]]
+    stamps = [5e3 + LOCALIZE_DT * i for i in range(LOCALIZE_SCANS)]
+
+    sm = FixedLagSmoother(lio_smoother_config(), device=dev)
+    sm.register_extrinsic(tsr.LIDAR_SENSOR, np.array([1, 0, 0, 0],
+                                                     np.float32),
+                          np.zeros(3, np.float32))
+    strat, feat_cfg = tsr.create_scan_registration(
+        *LIO_JSON, config_root=str(ROOT / "configs"), device=dev)
+    answers = []
+
+    def reloc(stamp, features, q, p):
+        t0 = time.perf_counter()
+        ans = gm.process_reloc_request(stamp, features, q, p)
+        answers.append((stamp, ans, 1e3 * (time.perf_counter() - t0)))
+    tracker = LidarTracker(sm, strat, active_submap=active,
+                           loam_cfg=feat_cfg, reloc_request_cb=reloc,
+                           device=dev)
+    tracker.initialize(stamps[0] - 1.0)
+    extractor = LidarFeatureExtractor(loam_cfg=feat_cfg, device=dev)
+
+    def moving(t):   # 1 m/s along x, 0.2 rad/s of yaw
+        dt = t - stamps[0]
+        return (lie_np.so3_exp_quat(np.array([0, 0, 0.2 * dt], np.float32)),
+                np.array([dt, 0.1 * dt, 0.0], np.float32))
+    deskew, deskew_cpu = LidarScanDeskewer(moving), LidarScanDeskewer(moving)
+    agg, agg_cpu = LidarAggregation(moving), LidarAggregation(moving)
+
+    chol.cholesky_solve_batched.launches = knn.knn_topk.launches = 0
+    ms, counts, d_err, last = [], None, 0.0, None
+    for i, (q, p) in enumerate(poses):
+        grid = _hall_grid(q, p, dev, WIDTH, seed=200 + i)
+        tracker.frame_initializer = lambda t, s=seeds[i]: s
+        sync()
+        t0 = time.perf_counter()
+        ok = tracker.process_scan(stamps[i], grid)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if not ok:
+            raise RuntimeError(f"14b: scan {i} was not accepted")
+        meas = extractor.process_pointcloud(stamps[i], grid)
+        fc = feat.extract_features(grid, feat_cfg)
+        counts = meas.counts()
+        if counts != {k: int(getattr(fc, k + "_valid").sum())
+                      for k in counts}:
+            raise RuntimeError(f"14b: feature extractor counts {counts}")
+        g_card = deskew.process_scan(stamps[i], grid)
+        g_cpu = deskew_cpu.process_scan(stamps[i], grid.to("cpu"))
+        d_err = max(d_err, float((g_card.xyz.cpu() - g_cpu.xyz).abs().max()))
+        agg.add_scan(stamps[i], grid)
+        agg_cpu.add_scan(stamps[i], grid.to("cpu"))
+        last = (fc, seeds[i])
+    k2_scans = knn.knn_topk.launches
+    (pts, valid), (pts_c, valid_c) = (agg.aggregate(stamps[-1]),
+                                      agg_cpu.aggregate(stamps[-1]))
+    a_err = float(np.abs(pts - pts_c).max())
+    if not (np.array_equal(valid, valid_c) and a_err <= LOCAL_CPU_TOL
+            and d_err <= LOCAL_CPU_TOL and deskew.published == len(poses)):
+        raise RuntimeError(f"14b: deskewer {d_err} / aggregation {a_err} m "
+                           f"card vs CPU")
+    sync()
+    t0 = time.perf_counter()
+    diag = sm.run_once()
+    sync()
+    solve_ms = 1e3 * (time.perf_counter() - t0)
+    k1 = chol.cholesky_solve_batched.launches
+
+    # checks against the truth
+    e_odom = [(float(np.linalg.norm(p - poses[i][1])),
+               _so3_err(q, poses[i][0]))
+              for i, (_, q, p) in enumerate(tracker.odom_global)]
+    e_win = [float(np.linalg.norm(sm.get_state(t)["p"]
+                                  - poses[stamps.index(t)][1]))
+             for t in sm.current_stamps()]
+    e_reloc = [(float(np.linalg.norm(a[1] - poses[stamps.index(t)][1])),
+                _so3_err(a[0], poses[stamps.index(t)][0]))
+               for t, a, _ in answers if a is not None]
+    worst = lambda es, j: max(e[j] for e in es)  # noqa: E731
+    print(f"[14b] LidarTracker on submap 0 of 13a's map (ActiveSubmap "
+          f"{int(active.get_loam_map()[1].sum())} edges + "
+          f"{int(active.get_loam_map()[3].sum())} surfaces valid), "
+          f"configs/{LIO_YAML}'s smoother, {LIO_JSON[0]}: {len(poses)} "
+          f"scans, {tracker.global_anchor_count} anchored; odom_global "
+          f"worst {worst(e_odom, 0):.4f} m / {worst(e_odom, 1):.4f} rad off "
+          f"the truth (bounds {GT_TRANS} / {GT_ROT}); {len(answers)} reloc "
+          f"requests, {len(e_reloc)} answered, off the truth by "
+          f"{[(round(a, 4), round(b, 4)) for a, b in e_reloc]} (m, rad; "
+          f"bounds {RELOC_TOL}), "
+          f"{statistics.median([a[2] for a in answers]):.1f} ms each; "
+          f"run_once: cost {float(diag.initial_cost):.6g} -> "
+          f"{float(diag.final_cost):.6g}, {int(diag.iterations)} accepted, "
+          f"{k1} K1 launches, {solve_ms:.1f} ms; window of "
+          f"{len(e_win)} states worst {max(e_win):.4f} m off (bound "
+          f"{GT_TRANS}); process_scan median {statistics.median(ms):.1f} ms "
+          f"(min {min(ms):.1f}, max {max(ms):.1f}; {card}); K2 "
+          f"{k2_scans} launches; feature counts {counts} equal "
+          f"extract_features'; card vs CPU: deskewed points {d_err:.2e} m, "
+          f"aggregated {a_err:.2e} m over {len(pts)} points (bound "
+          f"{LOCAL_CPU_TOL})", flush=True)
+    if not (tracker.global_anchor_count >= len(poses) - 1
+            and worst(e_odom, 0) < GT_TRANS and worst(e_odom, 1) < GT_ROT
+            and e_reloc and worst(e_reloc, 0) <= RELOC_TOL[0]
+            and worst(e_reloc, 1) <= RELOC_TOL[1]
+            and max(e_win) < GT_TRANS
+            and np.isfinite(float(diag.final_cost))):
+        raise RuntimeError("14b: the tracker missed the truth")
+    out = dict(launches=dict(k1=k1, k2=k2_scans), k2={})
+    if not cuda:
+        return out
+    if k1 < 1 or k2_scans < 2 * len(poses):
+        raise RuntimeError(f"14b: K1 {k1}, K2 {k2_scans} launches")
+
+    # one global registration, card vs CPU, and K2 at its shapes
+    fc, (q_s, p_s) = last
+    cfg = tracker.global_reg_cfg
+    world = active.get_loam_map()
+    res = treg.register_loam(fc, *world, *tsr._pose_to_device(
+        q_s, p_s, "cuda"), cfg)
+    res_cpu = treg.register_loam(fc.to("cpu"), *(w.cpu() for w in world),
+                                 *tsr._pose_to_device(q_s, p_s, "cpu"), cfg)
+    dp = float(torch.linalg.vector_norm(res.p.cpu() - res_cpu.p))
+    dr = _so3_err(res.q.cpu().numpy(), res_cpu.q.numpy())
+    print(f"[14b] one scan-to-submap registration, card vs CPU plain path: "
+          f"|dp|={dp:.2e} m, rotation {dr:.2e} rad (bounds {CARD_CPU_DP} / "
+          f"{CARD_CPU_ROT}), converged {bool(res.converged)} / "
+          f"{bool(res_cpu.converged)}", flush=True)
+    if not (dp <= CARD_CPU_DP and dr <= CARD_CPU_ROT
+            and bool(res.converged) == bool(res_cpu.converged)):
+        raise RuntimeError("14b: the global registration on the card "
+                           "disagrees with the CPU plain path")
+    me, mev, ms_, msv = world
+    for label, a, b, r, v, k in (
+            ("edges", fc.edge_strong, fc.edge_weak, me, mev, cfg.k_edge),
+            ("surfaces", fc.surf_strong, fc.surf_weak, ms_, msv,
+             cfg.k_surf)):
+        q_pts = lie.quat_rotate(res.q[None], torch.cat([a, b])) + res.p[None]
+        out["k2"][label] = _knn_times("14b", f"the scan-to-submap {label}",
+                                      q_pts, r, v, k, card)
+    return out
+
+
+def run_localization(loc, card="", device="cuda"):
+    """Phase 14: 14a MultiScan, 14b the tracker on 13a's map. Returns the
+    launch counts and K2's records."""
+    t0 = time.perf_counter()
+    ms = run_multiscan(card, device)
+    lz = run_localize(loc, card, device)
+    print(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(launches=dict(k1=lz["launches"]["k1"],
+                              k2=ms["launches"] + lz["launches"]["k2"]),
+                k2=dict(ms["k2"], **{"submap " + k: v
+                                     for k, v in lz["k2"].items()}))
 
 
 def main(only: str = "") -> int:
@@ -2518,7 +3100,8 @@ def main(only: str = "") -> int:
     if only:
         wanted = dict(k1=(chol,), k2=(knn,), k3=(moments,),
                       smoother=(chol, knn), mapper=(chol, knn),
-                      lvio=(chol, knn), **{"global": (chol, knn)})[
+                      lvio=(chol, knn), localization=(chol, knn),
+                      **{"global": (chol, knn)})[
                           only.split("-")[0]]
         libs = {name: mod for name, mod in libs.items() if mod in wanted}
     built = nvcc_build.build_many([(name, mod.SOURCES)
@@ -2547,6 +3130,10 @@ def main(only: str = "") -> int:
         return 0
     if only == "global":  # global mapping alone
         run_global(card)
+        print(card)
+        return 0
+    if only == "localization":  # 13a's map, then phase 14 on it
+        run_localization(run_global(card, online_only=True)["loc"], card)
         print(card)
         return 0
     if only in ("k2", "k3"):  # alone, on a map built at ground-truth poses
@@ -2674,7 +3261,11 @@ def main(only: str = "") -> int:
     glob = run_global(card)
     lap("13")
 
-    # ---- 14. records (K2 at the surface shape, the larger of the two)
+    # ---- 14. localization: MultiScan, the tracker on 13a's map (K1, K2)
+    local = run_localization(glob["loc"], card)
+    lap("14")
+
+    # ---- records (K2 at the surface shape, the larger of the two)
     kb1, kb1_by = _chol_bound(1, 640)
     k2s = kc["k2"]["times"]["surfaces"]
     k3s = kc["k3"]["times"]["surfaces"]
@@ -2684,7 +3275,8 @@ def main(only: str = "") -> int:
         "replaces": "beam_slam_tpu/ops/pallas_cholesky.py:226",
         "launches": (launches_flagship + launches_batched
                      + sess["launches"]["k1"] + mapper["launches"]["k1"]
-                     + vision["launches"]["k1"] + glob["launches"]["k1"]),
+                     + vision["launches"]["k1"] + glob["launches"]["k1"]
+                     + local["launches"]["k1"]),
         "max_abs_err": max_err, "ms": times[1][0], "plain_ms": times[1][1],
         "bound_ms": kb1, "bound_by": kb1_by,
         # the plain version is the library pair cholesky_ex + cholesky_solve
@@ -2695,7 +3287,7 @@ def main(only: str = "") -> int:
         "replaces": "beam_slam_tpu/ops/pallas_knn.py:110",
         "launches": (lio["launches"] + sess["launches"]["k2"]
                      + mapper["launches"]["k2"] + vision["launches"]["k2"]
-                     + glob["launches"]["k2"]),
+                     + glob["launches"]["k2"] + local["launches"]["k2"]),
         "max_abs_err": kc["k2"]["err"],
         "ms": k2s["ms"], "plain_ms": k2s["plain"],
         "bound_ms": k2s["bound"][0], "bound_by": k2s["bound"][1],
@@ -2721,7 +3313,8 @@ if __name__ == "__main__":
         knn_counts((sys.argv[2:] or ["cuda"])[0])
         sys.exit(0)
     if sys.argv[1:] not in ([], ["k1"], ["k2"], ["k3"], ["smoother"],
-                            ["mapper"], ["lvio"], ["global"]):
+                            ["mapper"], ["lvio"], ["global"],
+                            ["localization"]):
         sys.exit(f"usage: {sys.argv[0]} [k1 | k2 | k3 | smoother | mapper | "
-                 f"lvio | global | knn-counts [cpu|cuda]]")
+                 f"lvio | global | localization | knn-counts [cpu|cuda]]")
     sys.exit(main(only=(sys.argv[1:] or [""])[0]))

@@ -530,14 +530,15 @@ def test_create_scan_registration_on_configs():
 
 
 @pytest.mark.parametrize("reg_json,matcher,exc", [
-    ("registration/multi_scan.json", "matchers/loam_vlp16.json",
-     NotImplementedError),
-    ("registration/multi_scan.json", "matchers/icp.json",
-     NotImplementedError),
+    ("registration/scan_to_map.json", "matchers/icp.json", ValueError),
+    ("registration/scan_to_map.json", "matchers/ndt.json", ValueError),
     ("registration/scan_to_map.json", "matchers/gicp.json", ValueError),
 ])
 def test_create_scan_registration_unported_strategies_raise(reg_json,
                                                             matcher, exc):
+    """Combinations the reference does not implement either (a generic
+    matcher only exists for MULTISCAN) raise; every MULTISCAN combination
+    is built, as tests/test_torch_multiscan.py holds."""
     with pytest.raises(exc):
         tsr.create_scan_registration(reg_json, matcher, config_root=CONFIGS,
                                      device="cpu")

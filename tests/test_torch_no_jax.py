@@ -46,7 +46,11 @@ def test_port_imports_without_jax():
                 "global_mapping.scancontext", "global_mapping.reloc",
                 "global_mapping.global_map", "global_mapping.refinement",
                 "models.global_mapper", "parallel.sharded",
-                "tools.global_map_refinement_main", "bridge"):
+                "tools.global_map_refinement_main", "bridge",
+                "lidar.matchers", "global_mapping.active_submap",
+                "models.lidar_tracker", "models.lidar_feature_extractor",
+                "models.lidar_scan_deskewer", "models.lidar_aggregation",
+                "ops.native", "pipeline.sensor_log"):
         assert f"beam_slam_tpu_torch.{new}" in mods, new
     proc = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
