@@ -238,3 +238,39 @@ def global_map_from_numpy(fields: Mapping[str, object], device):
     gm = GlobalMap(GlobalMapParams(**dict(fields["params"])), device=device)
     gm.submaps = [submap_from_numpy(s, gm.device) for s in fields["submaps"]]
     return gm
+
+
+def pgo_state_from_numpy(fields: Mapping[str, np.ndarray], device):
+    """{"q", "p", "free"} (the JAX package's PGOState) → the port's
+    PGOState on ``device``."""
+    from beam_slam_tpu_torch.parallel.distributed_pgo import PGOState
+    return _build(PGOState, fields, device)
+
+
+def pgo_factors_from_numpy(fields: Mapping[str, np.ndarray], device):
+    """{"i", "j", "dq", "dp", "sqrt_info", "active"} (PGOFactors) → the
+    port's PGOFactors on ``device`` (slot indices as int64)."""
+    from beam_slam_tpu_torch.parallel.distributed_pgo import PGOFactors
+    return _build(PGOFactors, fields, device)
+
+
+def pgo_priors_from_numpy(fields: Mapping[str, np.ndarray], device):
+    """{"slot", "q0", "p0", "sqrt_info", "active"} (PGOPriors) → the port's
+    PGOPriors on ``device``."""
+    from beam_slam_tpu_torch.parallel.distributed_pgo import PGOPriors
+    return _build(PGOPriors, fields, device)
+
+
+def idp_unary_from_numpy(fields: Mapping[str, np.ndarray], device):
+    """The JAX package's InverseDepthUnaryReprojectionFactors as numpy →
+    the port's family on ``device``."""
+    return family_from_numpy("InverseDepthUnaryReprojectionFactors", fields,
+                             device)
+
+
+def vocabulary_from_numpy(vocab: np.ndarray, device) -> torch.Tensor:
+    """A binary-word vocabulary ``[n_words, 8]`` uint32 (the JAX package's
+    ``ImageDatabase.vocab``) → the port's int32 tensor of the same bits on
+    ``device``."""
+    from beam_slam_tpu_torch.vision.descriptors import words_from_numpy
+    return words_from_numpy(vocab, device)

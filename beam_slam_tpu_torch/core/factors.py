@@ -15,8 +15,7 @@ shared-topology batch of :mod:`beam_slam_tpu_torch.solver.batched`
 and, with ``per_window``, a batch whose slots differ
 (:mod:`beam_slam_tpu_torch.parallel.sharded`).
 
-Every family of the reference but ``InverseDepthUnaryReprojectionFactors``
-(vision, a later slice) is ported.
+Every family of the reference is ported.
 """
 
 from __future__ import annotations
@@ -742,6 +741,83 @@ class InverseDepthReprojectionFactors(FactorBatch):
         return r, J
 
 
+@dataclasses.dataclass
+class InverseDepthUnaryReprojectionFactors(FactorBatch):
+    """Unary inverse-depth reprojection: the ANCHOR camera pose is a fixed
+    per-factor parameter (the anchor keyframe has been marginalized out of
+    the window), so only the measurement state, the extrinsic and ρ are
+    optimized (bs_constraints/visual/inversedepth_reprojection_functor.h's
+    unary variant)."""
+
+    q_anchor: torch.Tensor   # [F, 4] fixed T_WORLD_CAMERA_anchor rotation
+    p_anchor: torch.Tensor   # [F, 3]
+    bearing: torch.Tensor    # [F, 2]
+    pixel: torch.Tensor      # [F, 2]
+    intr: torch.Tensor       # [F, 4]
+    sqrt_info: torch.Tensor  # [F, 2, 2]
+
+    BLOCKS = (BLOCK_IMU, BLOCK_EXTRINSIC, BLOCK_LANDMARK)
+    RESIDUAL_DIM = 2
+    USED_COLS = (0, 1, 2, 3, 4, 5, 15, 16, 17, 18, 19, 20, 21)
+    HAS_ANALYTIC = True
+
+    @staticmethod
+    def zeros(F: int, dtype=torch.float32,
+              device=None) -> "InverseDepthUnaryReprojectionFactors":
+        return InverseDepthUnaryReprojectionFactors(
+            **_slots_active(F, 3, device),
+            q_anchor=lie.quat_identity((F,), dtype, device),
+            p_anchor=torch.zeros(F, 3, dtype=dtype, device=device),
+            bearing=torch.zeros(F, 2, dtype=dtype, device=device),
+            pixel=torch.zeros(F, 2, dtype=dtype, device=device),
+            intr=_default_intr(F, dtype, device),
+            sqrt_info=torch.zeros(F, 2, 2, dtype=dtype, device=device))
+
+    def params(self):
+        return (self.q_anchor, self.p_anchor, self.bearing, self.pixel,
+                self.intr, self.sqrt_info)
+
+    def residual(self, block_states, params):
+        (q_m, p_m, *_), (q_bc, p_bc), (lm,) = block_states
+        q_wca, p_wca, bearing, pixel, intr, A = params
+        rho = torch.clamp(lm[..., 0], min=1e-4)
+        q_wcm = lie.quat_mul(q_m, q_bc)
+        p_wcm = p_m + lie.quat_rotate(q_m, p_bc)
+        X_w = lie.quat_rotate(q_wca, _bearing_point(bearing, rho)) + p_wca
+        X_m = lie.quat_rotate(lie.quat_conj(q_wcm), X_w - p_wcm)
+        return _project(X_m, intr, pixel, A)
+
+    def residual_and_jacobian_used(self, block_states, params):
+        """Closed-form Jacobian: the anchor camera pose is a fixed
+        parameter, so only the measurement chain differentiates (the
+        extrinsic enters once, unlike the binary variant)."""
+        (q_m, p_m, *_), (q_bc, p_bc), (lm,) = block_states
+        q_wca, p_wca, bearing, pixel, intr, A = params
+        rho_raw = lm[..., 0]
+        rho = torch.clamp(rho_raw, min=1e-4)
+        R_m = lie.quat_to_matrix(q_m)
+        R_e = lie.quat_to_matrix(q_bc)
+        R_wca = lie.quat_to_matrix(q_wca)
+        X_a = _bearing_point(bearing, rho)
+        X_w = _mv(R_wca, X_a) + p_wca
+        Y_m = _mtv(R_m, X_w - p_m)
+        X_m = _mtv(R_e, Y_m - p_bc)
+        r, AJ = _pinhole_project(X_m, intr, pixel, A)
+        AJe = AJ @ _T(R_e)
+        B = AJe @ _T(R_m)                   # ∂r/∂X_w
+        live_rho = (rho_raw > 1e-4).to(X_m.dtype)
+        J_rho = (_mv(B, _mv(R_wca, -X_a / rho[..., None]))[..., None]
+                 * live_rho[..., None, None])
+        J = torch.cat([
+            AJe @ lie.skew(Y_m),            # measurement δθ
+            -B,                             # measurement δp
+            AJ @ lie.skew(X_m),             # extrinsic δθ
+            -AJe,                           # extrinsic δp
+            J_rho,
+        ], dim=-1)
+        return r, J
+
+
 # ---------------------------------------------------------------------------
 # Motion-model factors
 # ---------------------------------------------------------------------------
@@ -869,4 +945,4 @@ FAMILIES = {cls.__name__: cls for cls in (
     ImuRelativeFactors, ImuPriorFactors, RelativePoseFactors,
     AbsolutePoseFactors, MarginalPriorFactors, ConstantVelocityFactors,
     Unicycle3DFactors, ReprojectionFactors, InverseDepthReprojectionFactors,
-    GravityAlignmentFactors)}
+    InverseDepthUnaryReprojectionFactors, GravityAlignmentFactors)}

@@ -64,9 +64,13 @@ class HostCopy:
     def ready(self) -> bool:
         return self._event is None or self._event.query()
 
-    def numpy(self) -> List[np.ndarray]:
+    def wait(self) -> None:
+        """Block until the copies have landed."""
         if self._event is not None:
             self._event.synchronize()
+
+    def numpy(self) -> List[np.ndarray]:
+        self.wait()
         return [h.numpy() for h in self._host]
 
 

@@ -20,9 +20,13 @@ Re-implements ``bs_models::global_mapping::GlobalMapRefinement``
      graph over every lidar keyframe with ScanContext loop-closure search,
      LOAM refinement, and statistical outlier rejection of loop factors.
 
-The reference's device-mesh branches (the sharded refinement step and the
-coupled distributed pose graph) stay in the JAX package: the functions here
-take no ``mesh``. Everything runs on the global map's device.
+With ``mesh`` (a :class:`beam_slam_tpu_torch.parallel.sharded.Mesh`),
+submap refinement runs the sharded refinement step
+(:func:`~beam_slam_tpu_torch.parallel.sharded.distributed_refinement_step`)
+and the batch optimization the coupled pose graph over factor shards
+(:mod:`beam_slam_tpu_torch.parallel.distributed_pgo`), as the reference's
+mesh branches do. Every shard of the port's mesh is the map's one device;
+with ``mesh=None`` the paths above run unchanged.
 """
 
 from __future__ import annotations
@@ -154,19 +158,20 @@ def _submap_problem(submap, params: RefinementParams, K: int):
 
 def run_submap_refinement(global_map: GlobalMap,
                           params: RefinementParams = RefinementParams(),
-                          n_outer: int = 2) -> float:
+                          mesh=None, n_outer: int = 2) -> float:
     """Refine every submap's keyframe poses; the per-submap window solves are
-    batched. ``n_outer`` outer rounds re-linearize the correspondences (the
-    leave-one-out map is rebuilt from the updated poses). Returns the summed
-    final cost."""
+    batched and, with ``mesh``, sharded over its shards. ``n_outer`` outer
+    rounds re-linearize the correspondences (the leave-one-out map is
+    rebuilt from the updated poses). Returns the summed final cost."""
     total = 0.0
     for _ in range(n_outer):
-        total = _run_submap_refinement_once(global_map, params)
+        total = _run_submap_refinement_once(global_map, params, mesh)
     return total
 
 
 def _run_submap_refinement_once(global_map: GlobalMap,
-                                params: RefinementParams) -> float:
+                                params: RefinementParams,
+                                mesh=None) -> float:
     from beam_slam_tpu_torch.solver import batched as bsv
 
     submaps = [s for s in global_map.submaps if s.lidar_keyframes]
@@ -174,23 +179,33 @@ def _run_submap_refinement_once(global_map: GlobalMap,
         return 0.0
     K = params.max_keyframes_per_submap
     problems = [_submap_problem(s, params, K) for s in submaps]
+    # pad the batch to a multiple of the mesh size (sharding needs the batch
+    # axis divisible by the shard count; padded solves are discarded)
+    if mesh is not None:
+        while len(problems) % mesh.size != 0:
+            problems.append(problems[0])
     windows = win.stack([p[0] for p in problems])
     families = tuple(win.stack([p[1][f] for p in problems])
                      for f in range(len(problems[0][1])))
     losses = (None,)
 
-    # same-topology submap batches take the shared-topology batched solver;
-    # mixed topologies (submaps of different keyframe counts) the per-window
-    # batched solve — one K1 launch of B systems per LM step either way
-    try:
-        bsv.assert_shared_topology(families)
-        out, diags = bsv.solve_batched_shared(windows, families, losses,
-                                              params.solver)
-    except ValueError:
-        out, diags = sharded.solve_batched(windows, families, losses,
-                                           params.solver)
-    q_all, p_all, total = to_numpy(out.imu.q, out.imu.p,
-                                   torch.sum(diags.final_cost))
+    if mesh is not None:
+        out, diags, total = sharded.distributed_refinement_step(
+            mesh, windows, families, losses, params.solver)
+    else:
+        # same-topology submap batches take the shared-topology batched
+        # solver; mixed topologies (submaps of different keyframe counts)
+        # the per-window batched solve — one K1 launch of B systems per LM
+        # step either way
+        try:
+            bsv.assert_shared_topology(families)
+            out, diags = bsv.solve_batched_shared(windows, families, losses,
+                                                  params.solver)
+        except ValueError:
+            out, diags = sharded.solve_batched(windows, families, losses,
+                                               params.solver)
+        total = torch.sum(diags.final_cost)
+    q_all, p_all, total = to_numpy(out.imu.q, out.imu.p, total)
 
     # write refined poses back into the submaps
     for b, sm in enumerate(submaps):
@@ -303,13 +318,21 @@ def _scan_cloud(f):
 
 def run_batch_optimization(global_map: GlobalMap,
                            params: BatchOptimizationParams =
-                           BatchOptimizationParams()) -> dict:
+                           BatchOptimizationParams(),
+                           mesh=None) -> dict:
     """Whole-trajectory batch optimization: pose graph over every lidar
     keyframe (world frame), ScanContext loop closures with LOAM refinement
     and MAD-based outlier rejection, then write the optimized poses back
     into the submaps. The keyframes' descriptors and the database searches
     stay on the map's device; the distances come to the host in one
-    copy."""
+    copy.
+
+    With ``mesh`` the solve runs as the COUPLED pose graph over factor
+    shards (:mod:`beam_slam_tpu_torch.parallel.distributed_pgo`): factors
+    split over the mesh's shards, per-shard assembly, the summed global
+    system through K1, loop closures as the cross-shard edges (SURVEY.md
+    §7.8; reference scale target
+    global_map_batch_optimization.cpp:1-519)."""
     from beam_slam_tpu_torch.global_mapping import scancontext as sc
     from beam_slam_tpu_torch.solver.smoother import (FixedLagSmoother,
                                                      SmootherConfig,
@@ -404,9 +427,12 @@ def run_batch_optimization(global_map: GlobalMap,
         txn.add_relative_pose(t_i, t_j, dq_m, dp_m,
                               w_loop * np.eye(6, dtype=np.float32))
 
-    smoother.send_transaction(txn)
-    smoother.run_once()
-    poses = {t: smoother.get_state(t) for (t, *_r) in kfs}
+    if mesh is not None:
+        poses = _solve_batch_distributed(mesh, kfs, txn, params)
+    else:
+        smoother.send_transaction(txn)
+        smoother.run_once()
+        poses = {t: smoother.get_state(t) for (t, *_r) in kfs}
 
     # write back: world keyframe poses → submap-frame keyframe poses
     for (t, _, _, _, (si, ki)) in kfs:
@@ -419,16 +445,56 @@ def run_batch_optimization(global_map: GlobalMap,
                 loops_kept=len(kept))
 
 
+def _solve_batch_distributed(mesh, kfs, txn, params: BatchOptimizationParams):
+    """Convert the batch-optimization transaction into a sharded pose-graph
+    problem and run the coupled LM over factor shards (one summed global
+    system per iteration)."""
+    from beam_slam_tpu_torch.parallel import distributed_pgo as dpgo
+
+    dev = mesh.device
+    N = len(kfs)
+    slot_of = {t: i for i, (t, *_r) in enumerate(kfs)}
+    q0 = np.stack([np.asarray(k[1], np.float32) for k in kfs])
+    p0 = np.stack([np.asarray(k[2], np.float32) for k in kfs])
+    state = dpgo.PGOState(*to_device_many((q0, p0, np.ones(N, bool)), dev))
+
+    rels = txn.rel_poses
+    F = max(len(rels), 1)
+    fac = dpgo.PGOFactors.zeros(F, device=dev)
+    if rels:
+        fac = dpgo.PGOFactors(*to_device_many((
+            np.asarray([slot_of[f.stamp_i] for f in rels], np.int64),
+            np.asarray([slot_of[f.stamp_j] for f in rels], np.int64),
+            np.stack([f.dq for f in rels]).astype(np.float32),
+            np.stack([f.dp for f in rels]).astype(np.float32),
+            np.stack([f.sqrt_info for f in rels]).astype(np.float32),
+            np.ones(F, bool)), dev))
+    pris = txn.abs_poses
+    Fp = max(len(pris), 1)
+    pri = dpgo.PGOPriors.zeros(Fp, device=dev)
+    if pris:
+        pri = dpgo.PGOPriors(*to_device_many((
+            np.asarray([slot_of[f.stamp] for f in pris], np.int64),
+            np.stack([f.q for f in pris]).astype(np.float32),
+            np.stack([f.p for f in pris]).astype(np.float32),
+            np.stack([f.sqrt_info for f in pris]).astype(np.float32),
+            np.ones(Fp, bool)), dev))
+    out, _c0, _cf = dpgo.solve_distributed(
+        mesh, state, fac, pri, n_iter=params.solver.max_iterations)
+    q, p = to_numpy(out.q, out.p)
+    return {t: dict(q=q[i], p=p[i]) for t, i in slot_of.items()}
+
+
 def run_full_refinement(global_map: GlobalMap,
-                        params: RefinementParams = RefinementParams()
-                        ) -> dict:
+                        params: RefinementParams = RefinementParams(),
+                        mesh=None) -> dict:
     """The GlobalMapRefinement orchestrator (global_map_refinement.cpp):
     submap refinement → submap alignment → pose-graph optimization →
     batch optimization."""
-    cost = run_submap_refinement(global_map, params)
+    cost = run_submap_refinement(global_map, params, mesh=mesh)
     n_aligned = run_submap_alignment(global_map)
     n_loops = run_pose_graph_optimization(global_map)
-    batch = run_batch_optimization(global_map)
+    batch = run_batch_optimization(global_map, mesh=mesh)
     return dict(refinement_cost=cost, submaps_aligned=n_aligned,
                 loop_closures=n_loops, **{f"batch_{k}": v
                                           for k, v in batch.items()})

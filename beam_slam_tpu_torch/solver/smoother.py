@@ -426,7 +426,8 @@ class _AsyncSolve:
     every other launch of the solve land on that stream (PyTorch's current
     stream is per thread). The job keeps the problem's tensors alive until
     the copy has landed, since they were allocated on the caller's stream.
-    ``ready()`` polls; ``result()`` waits and returns the host arrays, or
+    ``ready()`` polls; ``wait()`` blocks until the solve and its copy are
+    done; ``result()`` waits and returns the host arrays, or
     raises what the worker raised. ``span`` is the worker's (start, end)
     on the host's ``time.perf_counter`` clock."""
 
@@ -464,6 +465,13 @@ class _AsyncSolve:
     def ready(self) -> bool:
         return not self._thread.is_alive() and (
             self._copy is None or self._copy.ready())
+
+    def wait(self) -> None:
+        """Block until the worker has finished and its copy has landed;
+        a worker's error is left for :meth:`result` to raise."""
+        self._thread.join()
+        if self._copy is not None:
+            self._copy.wait()
 
     def result(self) -> List[np.ndarray]:
         self._thread.join()

@@ -20,6 +20,9 @@
                                  # build K1 and K2, run 13a's global
                                  # mapper, then only phase 14 on its map:
                                  # MultiScan and the LidarTracker
+    python3 chip_smoke.py completion
+                                 # build K1 and K2, then only phase 15: the
+                                 # last modules of the port
     python3 chip_smoke.py knn-counts [cpu|cuda]
                                  # K2's schedule (its mirror) at the LIO
                                  # shapes: the insertions each warp runs
@@ -97,9 +100,24 @@ kernel against its plain PyTorch version on the card:
     strategy, its reloc requests answered by the GlobalMapper, each scan
     also through the feature extractor, the deskewer and the aggregation
     model card vs CPU. Phase 11 writes its IMU samples and scans to a
-    sensor log and runs on what it reads back (the native index).
+    sensor log and runs on what it reads back (the native index);
+  * the last modules of the port (phase 15): the coupled whole-trajectory
+    pose graph at 1000 keyframes (D = 6000) over 8 factor shards, over a
+    2 × 4 hosts × shards layout and over one, every LM step's damped
+    system through K1 at (1, 6000), held against the reference test's
+    bounds and the CPU plain path, K1 timed there by CUDA events and by
+    the port's amortized timer; the flagship BA over 8 factor shards
+    against phase 4's solve; the unary inverse-depth problem card vs CPU;
+    the sharded refinement step over phase 5's windows; the threaded
+    mapper in lockstep on phase 11's events (its publishers and
+    diagnostics) and free-running on the JAX test's session; binary
+    descriptors and the image database card vs CPU; the calibration
+    viewer.
 
-Phases print one line each; any failure raises and exits non-zero. The
+Phases print one line each; any failure raises and exits non-zero. In
+the whole run phase 12 runs in a second process (``chip_smoke.py lvio``)
+beside phases 10 and 11, on the same card; its lines are printed, indented,
+when it has ended, before phase 13 starts. The
 line before the last two is the kernels' JSON record, then the card's name
 and power limit, and the last line the run's JSON verdict. Requires CUDA:
 without a card it fails and prints no result.
@@ -1586,6 +1604,48 @@ def _through_sensor_log(events, grids, device, card=""):
     return out
 
 
+def _mapper_frames(mode, duration_s, dev, card="", through_log=True):
+    """The events of phases 11, 12a and 12c: the mode's config (VIO
+    ignites after VIO_INIT_M), pipeline/sim_session's events (LIO's scans
+    the vendored scan seen from each scan's lidar pose; with
+    ``through_log`` its IMU samples and scans through a sensor log and
+    back, 14c), cut into frames (a frame: its IMU samples, sensors and
+    tick). Returns (config, frames, grids by stamp, scan stamps, ground
+    truth by sensor stamp)."""
+    from beam_slam_tpu_torch import device as tdev
+    from beam_slam_tpu_torch.core import lie_np
+    from beam_slam_tpu_torch.pipeline import sim_session as tss
+    cfg = _mapper_config(mode)
+    if mode == "VIO":
+        cfg.init.min_trajectory_length_m = VIO_INIT_M
+    traj, events, _ = tss.generate_session_events(
+        mode=mode, duration_s=duration_s, imu_hz=IMU_RATE, cam_hz=CAM_HZ,
+        lidar_hz=MAPPER_LIDAR_HZ, seed=MAPPER_SEED, device=dev)
+    scan_t = [ev[1] for ev in events if ev[0] == "scan"]
+    sensor_t = sorted({ev[1] for ev in events if ev[0] in ("scan", "pose")}
+                      | {ev[1].stamp for ev in events if ev[0] == "cam"})
+    gt = traj.sample(torch.tensor(sensor_t, dtype=torch.float32,
+                                  device=traj.device))
+    gt_q, gt_p = tdev.to_numpy(gt.q, gt.p)
+    gt_at = {t: (gt_q[i], gt_p[i]) for i, t in enumerate(sensor_t)}
+    grids = {ev[1]: ev[2] for ev in events if ev[0] == "scan"}
+    if mode == "LIO":   # the vendored scan
+        cloud = _load_scan()
+        for t in scan_t:
+            q_wl = lie_np.quat_mul(gt_at[t][0], tss.Q_BL)
+            p_wl = gt_at[t][1] + lie_np.quat_rotate(gt_at[t][0], tss.P_BL)
+            grids[t] = _observed_grid(cloud, q_wl, p_wl, dev)
+        if through_log:   # 14c: the session's IMU and scans through the log
+            events = _through_sensor_log(events, grids, dev, card)
+    frames, cur = [], []
+    for ev in events:   # one frame: its IMU samples, sensors and tick
+        cur.append(ev)
+        if ev[0] == "tick":
+            frames.append(cur)
+            cur = []
+    return cfg, frames, grids, scan_t, gt_at
+
+
 def run_mapper(card="", device="cuda", duration_s=MAPPER_S, mode="LIO",
                tag="11"):
     """Phases 11, 12a and 12c: the LocalMapper of the mode's pipeline YAML
@@ -1619,35 +1679,9 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S, mode="LIO",
         if cuda:
             torch.cuda.current_stream().synchronize()
 
-    cfg = _mapper_config(mode)
-    if mode == "VIO":
-        cfg.init.min_trajectory_length_m = VIO_INIT_M
-    traj, events, _ = tss.generate_session_events(
-        mode=mode, duration_s=duration_s, imu_hz=IMU_RATE, cam_hz=CAM_HZ,
-        lidar_hz=MAPPER_LIDAR_HZ, seed=MAPPER_SEED, device=dev)
-    scan_t = [ev[1] for ev in events if ev[0] == "scan"]
-    sensor_t = sorted({ev[1] for ev in events if ev[0] in ("scan", "pose")}
-                      | {ev[1].stamp for ev in events if ev[0] == "cam"})
-    gt = traj.sample(torch.tensor(sensor_t, dtype=torch.float32,
-                                  device=traj.device))
-    gt_q, gt_p = tdev.to_numpy(gt.q, gt.p)
-    gt_at = {t: (gt_q[i], gt_p[i]) for i, t in enumerate(sensor_t)}
-    grids = {ev[1]: ev[2] for ev in events if ev[0] == "scan"}
+    cfg, frames, grids, scan_t, gt_at = _mapper_frames(
+        mode, duration_s, dev, card)
     vendored = mode == "LIO"
-    if vendored:
-        cloud = _load_scan()
-        for t in scan_t:
-            q_wl = lie_np.quat_mul(gt_at[t][0], tss.Q_BL)
-            p_wl = gt_at[t][1] + lie_np.quat_rotate(gt_at[t][0], tss.P_BL)
-            grids[t] = _observed_grid(cloud, q_wl, p_wl, dev)
-    if vendored:   # 14c: the session's IMU and scans through the log
-        events = _through_sensor_log(events, grids, dev, card)
-    frames, cur = [], []
-    for ev in events:   # one frame: its IMU samples, sensors and tick
-        cur.append(ev)
-        if ev[0] == "tick":
-            frames.append(cur)
-            cur = []
 
     mapper = LocalMapper(cfg, device=dev)
     sm = mapper.smoother
@@ -1979,12 +2013,27 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S, mode="LIO",
               f"{ms:.0f} ms a step", flush=True)
         cost_ok = all(x <= COST_RTOL for x in gaps) and all(
             x <= DP_TOL for x in dps)
+        # are the two independent end states minima? The float64 gradient
+        # at each (against the unsolved problem's) and the float64 cost
+        # along the segment from the CPU's end state to the card's
+        alphas = (0.0, 0.25, 0.5, 0.75, 1.0)
+        grads = [_grad64(w, fams, losses) for w in (window, out, out_cpu)]
+        seg = _cost64([_lerp_window(out_cpu, out, a) for a in alphas],
+                      fams, losses)
+        print(f"[{tag}] the independent end states: float64 gradient norm "
+              f"card {grads[1]:.3e}, CPU {grads[2]:.3e} (the unsolved "
+              f"problem's {grads[0]:.3e}); float64 cost at α = "
+              f"{', '.join(map(str, alphas))} from the CPU's end state to "
+              f"the card's: {', '.join(f'{x:.10g}' for x in seg)} (rel to "
+              f"the lower end: "
+              f"{', '.join(f'{x / min(seg[0], seg[-1]) - 1:+.2e}' for x in seg)})",
+              flush=True)
     else:
         cost_ok = gap <= COST_RTOL
     if not (cost_ok and dp <= DP_TOL):
         raise RuntimeError(f"[{tag}] the mapper's problem on the card "
                            f"disagrees with the CPU plain path")
-    return dict(launches=launches)
+    return dict(launches=launches, frames=frames, grids=grids)
 
 
 def _cost64(windows, fams, losses):
@@ -1997,6 +2046,36 @@ def _cost64(windows, fams, losses):
     fams64 = tuple(f64(f.to("cpu")) for f in fams)
     return [float(gn.total_cost(f64(w.to("cpu")), fams64, losses))
             for w in windows]
+
+
+def _f64(s):
+    return s.map(lambda t: t.double() if t.is_floating_point() else t)
+
+
+def _grad64(window, fams, losses) -> float:
+    """Norm of the problem's gradient over its free dof (dense and
+    landmark) at ``window``, the CPU plain path in float64."""
+    from beam_slam_tpu_torch.solver import gauss_newton as gn
+    w = _f64(window.to("cpu"))
+    _, g, _, g_l, _, _ = gn.assemble_normal_equations(
+        w, tuple(_f64(f.to("cpu")) for f in fams), losses)
+    free = w.dense_free_mask().double()
+    lm_free = (w.landmarks.active & ~w.landmarks.held).double()
+    return float(torch.sqrt(torch.sum((g[:-1] * free) ** 2)
+                            + torch.sum((g_l * lm_free[:, None]) ** 2)))
+
+
+def _lerp_window(a, b, alpha):
+    """a + α·(b − a) leafwise in float64 on the CPU, quaternions
+    renormalized; masks from ``a``."""
+    from beam_slam_tpu_torch.core import lie
+    w = _f64(a.to("cpu")).map(
+        lambda x, y: x + alpha * (y - x) if x.is_floating_point() else x,
+        _f64(b.to("cpu")))
+    return w.replace(
+        imu=w.imu.replace(q=lie.quat_normalize(w.imu.q)),
+        extrinsics=w.extrinsics.replace(
+            q=lie.quat_normalize(w.extrinsics.q)))
 
 
 def _rel_gap(c, c_ref):
@@ -3070,6 +3149,796 @@ def run_localization(loc, card="", device="cuda"):
                                      for k, v in lz["k2"].items()}))
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the last modules of the port (coupled PGO and BA over factor
+# shards, the sharded refinement step, the threaded mapper, descriptors and
+# the image database, the calibration viewer, the unary IDP factor)
+# ---------------------------------------------------------------------------
+
+
+# 15a: the coupled whole-trajectory pose graph at 1000 keyframes — the ring
+# of tests/test_distributed_pgo.py:20 at N = 1000 (D = 6000): 999 odometry
+# factors, 40 loop closures half a ring apart, a prior on pose 0, the
+# test's information weights; a per-step drift of 0.0126 m, so the walk
+# ends as far off as the test's 64-pose ring at 0.05 m (0.05·√(64/1000)).
+PGO_N, PGO_LOOPS, PGO_DRIFT, PGO_SEED, PGO_ITERS = 1000, 40, 0.0126, 23, 20
+PGO_SHARDS, PGO_HOSTS = 8, (2, 4)
+PGO_POS_TOL, PGO_GT_TOL, PGO_COST_RATIO = 1e-4, 1e-3, 1e-6
+# tests/test_distributed_ba.py:44-54; tests/test_idp.py:233-235
+BA_COST_RTOL, BA_IMU_TOL, BA_LM_TOL = 1e-3, 2e-3, 5e-3
+IDP_COST, IDP_RHO, IDP_CARD_CPU = 1e-6, 1e-3, 1e-4
+REFINE_SHARDS, REFINE_POS = 8, 5e-4
+
+MAPPER_LOCKSTEP_TOL = 1e-5        # 15d: lockstep window vs the sync mapper
+# 15d's lockstep ignites after 0.5 m of path, not lio.yaml's 2.0 m: at 2.0
+# m the ignition waits for frame 40, and the two replays of 43 frames took
+# 64 s of the script's time limit; at 0.5 m it comes at frame 7
+LOCKSTEP_INIT_M = 0.5
+# 15e: 20 views of 12b's texture, each shifted by up to ±6 px and with
+# Gaussian noise of 2 grey levels (numpy seed 29); descriptor bits may
+# differ card vs CPU only where a sample rounds differently
+DESC_SEED, DESC_VIEWS, DESC_BITS, DESC_WORDS = 29, 20, 5e-3, 64
+VIEWER_PX = 1e-3                  # 15f: projection card vs CPU, pixels
+
+
+def pgo_ring(device, N=PGO_N, n_loops=PGO_LOOPS, drift=PGO_DRIFT,
+             seed=PGO_SEED):
+    """tests/test_distributed_pgo.py::ring_problem in numpy, on ``device``:
+    (PGOState, PGOFactors, PGOPriors, p_gt [N, 3])."""
+    from beam_slam_tpu_torch.core import lie_np
+    from beam_slam_tpu_torch.device import to_device_many
+    from beam_slam_tpu_torch.parallel import distributed_pgo as dpgo
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0, 2 * np.pi, N, endpoint=False)
+    p_gt = np.stack([5 * np.cos(ang), 5 * np.sin(ang),
+                     0.2 * np.sin(3 * ang)], 1).astype(np.float32)
+    q_gt = np.stack([lie_np.so3_exp_quat(np.asarray([0, 0, a], np.float32))
+                     for a in ang]).astype(np.float32)
+    d = np.cumsum(rng.standard_normal((N, 3)) * drift, axis=0)
+    p0 = p_gt + d.astype(np.float32)
+    q0 = np.stack([lie_np.quat_mul(q_gt[i], lie_np.so3_exp_quat(
+        rng.standard_normal(3).astype(np.float32) * 0.02))
+        for i in range(N)]).astype(np.float32)
+    p0[0], q0[0] = p_gt[0], q_gt[0]
+    free = np.ones(N, bool)
+    free[0] = False
+    ii = list(range(N - 1))
+    jj = [i + 1 for i in ii]
+    for k in range(n_loops):
+        i = (k * 7) % (N // 2)
+        ii.append(i)
+        jj.append(i + N // 2)
+    ii, jj = np.asarray(ii), np.asarray(jj)
+    q_inv = lie_np.quat_conj(q_gt[ii])
+    dq = lie_np.quat_mul(q_inv, q_gt[jj]).astype(np.float32)
+    dp = lie_np.quat_rotate(q_inv, p_gt[jj] - p_gt[ii]).astype(np.float32)
+    F = len(ii)
+    state = dpgo.PGOState(*to_device_many((q0, p0, free), device))
+    fac = dpgo.PGOFactors(*to_device_many((
+        ii.astype(np.int64), jj.astype(np.int64), dq, dp,
+        np.tile(1e2 * np.eye(6, dtype=np.float32), (F, 1, 1)),
+        np.ones(F, bool)), device))
+    pri = dpgo.PGOPriors(*to_device_many((
+        np.zeros(1, np.int64), q_gt[:1], p_gt[:1],
+        1e3 * np.eye(6, dtype=np.float32)[None], np.ones(1, bool)), device))
+    return state, fac, pri, p_gt
+
+
+def unary_idp_problem(device):
+    """The unary inverse-depth problem of tests/test_idp.py:185-235 on
+    ``device``: an anchor camera at the origin, a landmark at bearing
+    (0.1, -0.05) and ρ = 0.2, seen from a measurement pose whose seed is
+    off by (0.01, -0.01, 0.02) rad and (0.05, -0.04, 0.03) m, ρ seeded
+    30% high, the extrinsic held, a 1e3 pose prior at the true measurement
+    pose. Returns (window, families, losses, rho_gt)."""
+    from beam_slam_tpu_torch.core import factors as fc
+    from beam_slam_tpu_torch.core import lie as tlie
+    from beam_slam_tpu_torch.core.window import WindowState
+    f32 = dict(dtype=torch.float32, device=device)
+    bearing = torch.tensor([0.1, -0.05], **f32)
+    rho_gt = 0.2
+    X_w = torch.cat([bearing, torch.ones(1, **f32)]) / rho_gt
+    q_m = tlie.so3_exp_quat(torch.tensor([0.0, 0.02, 0.0], **f32))
+    p_m = torch.tensor([0.5, 0.1, 0.0], **f32)
+    X_c = tlie.quat_rotate(tlie.quat_conj(q_m), X_w - p_m)
+    pix = torch.stack([400.0 * X_c[0] / X_c[2] + 320.0,
+                       400.0 * X_c[1] / X_c[2] + 240.0])
+    w = WindowState.zeros(2, E=1, L=2, device=device)
+    imu, ext, lm = w.imu, w.extrinsics, w.landmarks
+    imu.q[0] = tlie.quat_mul(q_m, tlie.so3_exp_quat(
+        torch.tensor([0.01, -0.01, 0.02], **f32)))
+    imu.p[0] = p_m + torch.tensor([0.05, -0.04, 0.03], **f32)
+    imu.active[0] = True
+    ext.active[0] = ext.held[0] = True
+    lm.pt[0, 0] = rho_gt * 1.3
+    lm.active[0] = True
+    fam = fc.InverseDepthUnaryReprojectionFactors.zeros(4, device=device)
+    fam.active[0] = True
+    fam.bearing[0] = bearing
+    fam.pixel[0] = pix
+    fam.intr[0] = torch.tensor([400.0, 400.0, 320.0, 240.0], **f32)
+    fam.sqrt_info[0] = torch.eye(2, **f32)
+    prior = fc.AbsolutePoseFactors.zeros(1, device=device)
+    prior.active[0] = True
+    prior.q0[0], prior.p0[0] = q_m, p_m
+    prior.sqrt_info[0] = 1e3 * torch.eye(6, **f32)
+    return w, (fam, prior), (None, None), rho_gt
+
+
+# 15d's free-running session: the configuration of
+# tests/test_threaded_pipeline.py:21-62 (LIO, lag 3 s, 32 states, LM <= 6
+# steps, LIDAR initialization after 1.5 m; the structured 16 × 504 scene
+# seen along an analytic trajectory; 100 Hz IMU, 5 Hz lidar, 6 s).
+THREADED_P_BL = (0.05, 0.0, -0.08)
+THREADED_S, THREADED_IMU_HZ, THREADED_LIDAR_HZ = 6.0, 100.0, 5.0
+THREADED_ATE = 0.05               # tests/test_threaded_pipeline.py:88-89
+
+
+def threaded_config():
+    """The LocalMapperConfig of tests/test_threaded_pipeline.py::_cfg."""
+    from beam_slam_tpu_torch.models.slam_initialization import InitParams
+    from beam_slam_tpu_torch.pipeline.config import (CalibrationConfig,
+                                                     LocalMapperConfig)
+    return LocalMapperConfig(
+        mode="LIO", lag_duration=3.0, max_states=32, max_iterations=6,
+        init=InitParams(mode="LIDAR", min_trajectory_length_m=1.5,
+                        min_observability=0.1),
+        calibration=CalibrationConfig(
+            q_baselink_lidar=np.array([1, 0, 0, 0], np.float32),
+            p_baselink_lidar=np.asarray(THREADED_P_BL, np.float32)))
+
+
+def threaded_feed(mapper, device, duration_s=THREADED_S, between=None):
+    """Feed ``mapper`` the session of tests/test_threaded_pipeline.py::_feed
+    on ``device``: per lidar period its IMU samples, then the scan of the
+    structured scene seen from the true pose. ``between(kind)`` runs after
+    each segment's IMU samples ("imu") and after its scan ("scan"): a sync
+    mapper's tick, or a threaded mapper's join and tick. Returns the
+    trajectory."""
+    from beam_slam_tpu_torch.core import lie as tlie
+    from beam_slam_tpu_torch.device import to_numpy
+    from beam_slam_tpu_torch.lidar.cloud import synthetic_structured_scene
+    from beam_slam_tpu_torch.utils.sim import AnalyticTrajectory
+    scene = synthetic_structured_scene(n_rings=16, width=504, device=device)
+    p_bl = torch.tensor(THREADED_P_BL, device=device)
+    traj = AnalyticTrajectory(amp_p=(0.6, 0.5, 0.2),
+                              v_drift=(0.35, 0.05, 0.0),
+                              amp_r=(0.1, 0.1, 0.15), device=device)
+    n_seg = int(duration_s * THREADED_LIDAR_HZ)
+    per = int(THREADED_IMU_HZ / THREADED_LIDAR_HZ)
+    t_prev = 0.0
+    for k in range(1, n_seg + 1):
+        t = k / THREADED_LIDAR_HZ
+        tm = t_prev + (np.arange(per) + 0.5) / THREADED_IMU_HZ
+        smp = traj.sample(torch.tensor(tm, dtype=torch.float32,
+                                       device=device))
+        w, a = to_numpy(smp.w_body, smp.a_body)
+        for i in range(per):
+            mapper.on_imu(float(tm[i]), w[i], a[i])
+        if between is not None:
+            between("imu")
+        g = traj.sample(torch.tensor([t], dtype=torch.float32,
+                                     device=device))
+        # lidar pose = baselink pose ∘ (identity rotation, P_BL)
+        p_wl = g.p[0] + tlie.quat_rotate(g.q[0], p_bl)
+        xyz = tlie.quat_rotate(tlie.quat_conj(g.q[0])[None, None],
+                               scene.xyz - p_wl)
+        grid = scene.replace(xyz=torch.where(scene.valid[..., None], xyz,
+                                             torch.zeros_like(xyz)))
+        mapper.on_scan(round(t, 6), grid)
+        if between is not None:
+            between("scan")
+        t_prev = t
+    return traj
+
+
+def defer_notifications(mapper):
+    """Make a LocalMapper deliver the graph-update notifications of its
+    models (inertial, lidar and visual odometry) after ``tick()`` returns,
+    in registration order, as the threaded mapper's spinners deliver them
+    in lockstep (``ThreadedLocalMapper._route_graph_updates``); other
+    subscribers (publishers) stay inline. The sync mapper delivers them
+    inside the harvest, before the tick ingests and dispatches the next
+    solve, so with inline delivery the two part after the first tick that
+    harvests a solve. Returns the mapper."""
+    owners = [mapper.io, getattr(mapper.io, "model", None), mapper.lo,
+              getattr(mapper.lo, "registration", None), mapper.vo]
+    deferred, routed = [], []
+    for cb in mapper.smoother._on_update:
+        owner = getattr(cb, "__self__", None)
+        if owner is not None and any(owner is o for o in owners):
+            routed.append(lambda sm, cb=cb: deferred.append((cb, sm)))
+        else:
+            routed.append(cb)
+    mapper.smoother._on_update = routed
+    tick = mapper.tick
+
+    def deferred_tick():
+        out = tick()
+        while deferred:
+            cb, sm = deferred.pop(0)
+            cb(sm)
+        return out
+    mapper.tick = deferred_tick
+    return mapper
+
+
+def window_positions(mapper):
+    """{stamp: position} of every state in the mapper's window."""
+    sm = mapper.smoother
+    return {t: sm.get_state(t)["p"].copy() for t in sm.current_stamps()}
+
+
+def final_ate(mapper, traj):
+    """The reference test's final-window ATE: every window state against
+    the trajectory, after an SE(3) fit."""
+    from beam_slam_tpu_torch.device import to_numpy
+    from beam_slam_tpu_torch.utils.evaluation import ate_rmse
+    stamps = mapper.smoother.current_stamps()
+    est = np.stack([mapper.smoother.get_state(t)["p"] for t in stamps])
+    gt = traj.sample(torch.tensor(stamps, dtype=torch.float32,
+                                  device=traj.device))
+    return ate_rmse(est, to_numpy(gt.p)[0], align="se3")
+
+
+def _k1():
+    from beam_slam_tpu_torch.ops import cholesky as chol
+    return chol.cholesky_solve_batched
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_pgo(card="", device="cuda"):
+    """15a: the coupled pose graph at 1000 keyframes (PGO_N) over factor
+    shards: distributed_pgo.solve_distributed over PGO_SHARDS shards,
+    multihost.solve_pgo_multihost over a PGO_HOSTS layout and solve_single,
+    on the card (PGO_ITERS LM steps, K1 at (1, 6000) each), then
+    solve_single on the CPU plain path. Held to the reference test's
+    bounds; K1 timed at (1, 6000) by CUDA events and by the port's
+    amortized timer, the library pair beside it. Returns the K1 launches
+    and the K1 row. ``device="cpu"`` rehearses the phase off the card
+    (no kernel, no times)."""
+    from beam_slam_tpu_torch.device import to_numpy
+    from beam_slam_tpu_torch.ops import cholesky as chol
+    from beam_slam_tpu_torch.parallel import distributed_pgo as dpgo
+    from beam_slam_tpu_torch.parallel import multihost as mh
+    from beam_slam_tpu_torch.parallel.sharded import Mesh
+    from beam_slam_tpu_torch.utils import timing
+
+    cuda = device == "cuda"
+    state, fac, pri, p_gt = pgo_ring(device)
+    solves = {}
+
+    def run(label, fn, cuda=cuda):
+        k1 = _k1()
+        k1.launches = 0
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, c0, c1 = fn()
+        q, p, c0, c1 = to_numpy(out.q, out.p, c0, c1)
+        solves[label] = dict(
+            out=out, p=p, c0=float(c0), c1=float(c1),
+            wall=time.perf_counter() - t0, k1=k1.launches,
+            gib=(torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+                 else None))
+
+    run("1 shard", lambda: dpgo.solve_single(state, fac, pri, PGO_ITERS))
+    run(f"{PGO_SHARDS} shards", lambda: dpgo.solve_distributed(
+        Mesh((dpgo.AXIS,), (PGO_SHARDS,), device), state, fac, pri,
+        PGO_ITERS))
+    run("{}x{}".format(*PGO_HOSTS), lambda: mh.solve_pgo_multihost(
+        state, fac, pri, PGO_ITERS,
+        mesh=mh.make_hybrid_mesh(*PGO_HOSTS, devices=[device])))
+    launches = sum(s["k1"] for s in solves.values())
+    run("CPU", lambda: dpgo.solve_single(state.to("cpu"), fac.to("cpu"),
+                                         pri.to("cpu"), PGO_ITERS),
+        cuda=False)
+    one = solves["1 shard"]
+    gaps = {k: float(np.abs(s["p"] - one["p"]).max())
+            for k, s in solves.items() if k != "1 shard"}
+    truth = {k: float(np.linalg.norm(s["p"] - p_gt, axis=1).max())
+             for k, s in solves.items()}
+    ratio = {k: s["c1"] / s["c0"] for k, s in solves.items()}
+
+    # K1 on the solved graph's damped system (the first step's λ), timed
+    # by CUDA events in turns with the library pair, and by the port's
+    # amortized timer; these launches are not the path's
+    H, g, _ = dpgo._local_normal_eqs(one["out"], fac, pri)
+    free_dof = torch.repeat_interleave(one["out"].free, dpgo.POSE_DOF)
+    Hs, gs, _ = dpgo._damped_system(
+        H, g, torch.tensor(1e-4, device=device), free_dof)
+    Hs, gs = Hs[None].contiguous(), gs[None].contiguous()
+    chol_k, plain = chol.cholesky_solve_batched, \
+        chol.cholesky_solve_batched_reference
+    x, info = chol_k(Hs, gs)
+    x_ref, _ = plain(Hs, gs)
+    err = float((x - x_ref).abs().max())
+    ev_ms = lib_ms = am_ms = float("nan")
+    if cuda:
+        ev_ms, lib_ms = _paired_ms(lambda: chol_k(Hs, gs),
+                                   lambda: plain(Hs, gs), reps=10)
+        am_ms = timing.amortized_median_ms(chol_k, Hs, gs)
+    bound, bound_by = _chol_bound(1, Hs.shape[-1])
+    solve_desc = "; ".join(
+        f"{k}: {s['wall']:.2f} s, {s['k1']} K1 launches"
+        + (f", peak {s['gib']:.2f} GiB" if s["gib"] is not None else "")
+        for k, s in solves.items())
+    print(f"[15a] coupled pose graph, {PGO_N} keyframes (D = "
+          f"{6 * PGO_N}), {fac.i.shape[0]} factors ({PGO_LOOPS} loop "
+          f"closures), {PGO_ITERS} LM steps a solve: {solve_desc}; max|Δp| "
+          f"against the card's 1-shard solve "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f" m (bound {PGO_POS_TOL}); against the truth "
+          + ", ".join(f"{k} {v:.2e}" for k, v in truth.items())
+          + f" m (bound {PGO_GT_TOL}); final / initial cost "
+          + ", ".join(f"{k} {v:.2e}" for k, v in ratio.items())
+          + f" (bound {PGO_COST_RATIO}); K1 at "
+          f"({Hs.shape[0]}, {Hs.shape[-1]}): "
+          f"max|x-x_ref| {err:.3e} (bound "
+          f"{X_TOL * float(x_ref.abs().max()):.3e}), CUDA events "
+          f"{ev_ms:.4f} ms, amortized timer {am_ms:.4f} ms (within "
+          f"{100 * abs(am_ms - ev_ms) / ev_ms:.1f}%, bound 10%), library "
+          f"pair cholesky_ex + cholesky_solve {lib_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({bound_by}) ({card})", flush=True)
+    if not (all(v <= PGO_POS_TOL for v in gaps.values())
+            and all(v <= PGO_GT_TOL for v in truth.values())
+            and all(v <= PGO_COST_RATIO for v in ratio.values())):
+        raise RuntimeError("[15a] the coupled pose graph missed a bound")
+    if cuda and not (int(info[0]) == 0
+                     and err <= X_TOL * float(x_ref.abs().max())
+                     and abs(am_ms - ev_ms) <= 0.1 * ev_ms
+                     and all(s["k1"] == PGO_ITERS for k, s in solves.items()
+                             if k != "CPU")):
+        raise RuntimeError("[15a] K1 at (1, 6000) failed its checks")
+    return dict(launches=launches,
+                k1=dict(ms=ev_ms, am_ms=am_ms, plain_ms=lib_ms,
+                        bound=(bound, bound_by), err=err,
+                        launches=launches))
+
+
+def run_sharded_ba(flagship, batch, card="", device="cuda"):
+    """15b and 15c: the flagship window's BA over factor shards
+    (distributed_ba.solve_distributed, K1 at (1, 640)) against phase 4's
+    solve; the unary IDP problem card vs CPU; the sharded refinement step
+    over phase 5's B windows (K1 at (B, 640)) against phase 5's batched
+    solve. Returns the K1 launches."""
+    from beam_slam_tpu_torch.device import to_numpy
+    from beam_slam_tpu_torch.parallel import distributed_ba as dba
+    from beam_slam_tpu_torch.parallel import sharded as tsh
+    from beam_slam_tpu_torch.solver import gauss_newton as gn
+    k1 = _k1()
+    options = gn.SolverOptions(max_iterations=10)
+
+    # ---- 15b
+    window, fams, out4, diag4 = (flagship[k] for k in
+                                 ("window", "fams", "out", "diag"))
+    k1.launches = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    out_d, diag_d = dba.solve_distributed(
+        dba.make_mesh(BATCH, devices=[device]), window, fams, LOSSES,
+        options)
+    c1_d, c1_4 = (float(c) for c in to_numpy(diag_d.final_cost,
+                                             diag4.final_cost))
+    wall = time.perf_counter() - t0
+    launches = k1.launches
+    act = window.landmarks.active
+    gaps = dict(
+        cost=abs(c1_d - c1_4) / c1_4,
+        p=float((out_d.imu.p - out4.imu.p).abs().max()),
+        q=float((out_d.imu.q - out4.imu.q).abs().max()),
+        lm=float((out_d.landmarks.pt - out4.landmarks.pt)[act].abs().max()))
+    idp = {}
+    for side, dev in (("cuda", device), ("cpu", "cpu")):
+        w, f, l, rho_gt = unary_idp_problem(dev)
+        k1.launches = 0
+        out, diag = gn.solve(w, f, l, gn.SolverOptions(max_iterations=15))
+        idp[side] = (float(diag.final_cost), float(out.landmarks.pt[0, 0]))
+        if side == "cuda":
+            launches += k1.launches
+    print(f"[15b] flagship BA over {BATCH} factor shards "
+          f"(distributed_ba.solve_distributed, {options.max_iterations} LM "
+          f"steps; {launches} K1 launches with the unary IDP solve's) "
+          f"against phase 4's solve: final cost "
+          f"{c1_d:.6g} / {c1_4:.6g} (rel gap {gaps['cost']:.2e}, bound "
+          f"{BA_COST_RTOL}), max|Δp| {gaps['p']:.2e}, max|Δq| "
+          f"{gaps['q']:.2e} (bound {BA_IMU_TOL}), active landmarks "
+          f"{gaps['lm']:.2e} (bound {BA_LM_TOL}); wall {1e3 * wall:.1f} ms "
+          f"against phase 4's {flagship['ms']:.1f} ms; unary IDP card / "
+          f"CPU: final cost {idp['cuda'][0]:.2e} / {idp['cpu'][0]:.2e} "
+          f"(bound {IDP_COST}), ρ {idp['cuda'][1]:.6f} / "
+          f"{idp['cpu'][1]:.6f} (truth {rho_gt}, bound {IDP_RHO}; card vs "
+          f"CPU {abs(idp['cuda'][1] - idp['cpu'][1]):.2e}, bound "
+          f"{IDP_CARD_CPU}) ({card})", flush=True)
+    if not (gaps["cost"] <= BA_COST_RTOL and gaps["p"] <= BA_IMU_TOL
+            and gaps["q"] <= BA_IMU_TOL and gaps["lm"] <= BA_LM_TOL):
+        raise RuntimeError("[15b] sharded BA disagrees with phase 4")
+    if not (all(c < IDP_COST and abs(r - rho_gt) < IDP_RHO
+                for c, r in idp.values())
+            and abs(idp["cuda"][1] - idp["cpu"][1]) <= IDP_CARD_CPU):
+        raise RuntimeError("[15b] the unary IDP problem failed its checks")
+
+    # ---- 15c
+    wins, fams_b, out_b = (batch[k] for k in ("windows", "fams", "out"))
+    k1.launches = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    out_c, diags_c, total = tsh.distributed_refinement_step(
+        tsh.make_mesh(REFINE_SHARDS, devices=[device]), wins, fams_b,
+        LOSSES, options)
+    c0, c1, total = to_numpy(diags_c.initial_cost, diags_c.final_cost, total)
+    wall = time.perf_counter() - t0
+    launches_c = k1.launches
+    dp = float((out_c.imu.p - out_b.imu.p).abs().max())
+    total_gap = abs(float(total) - float(c1.sum())) / float(c1.sum())
+    print(f"[15c] sharded refinement step over {REFINE_SHARDS} shards, "
+          f"B = {len(c1)} flagship windows: every final cost <= its "
+          f"initial ({bool((c1 <= c0).all())}; worst final / initial "
+          f"{float((c1 / c0).max()):.2e}); max|Δp| against phase 5's "
+          f"batched solve {dp:.2e} m (bound {REFINE_POS}); total "
+          f"{float(total):.6g} = the sum of the final costs (rel gap "
+          f"{total_gap:.1e}); {launches_c} K1 launches, wall "
+          f"{1e3 * wall:.1f} ms ({card})", flush=True)
+    if not (bool((c1 <= c0).all()) and dp <= REFINE_POS
+            and total_gap <= 1e-6
+            and (launches_c >= 1 or device != "cuda")):
+        raise RuntimeError("[15c] the sharded refinement step failed")
+    return dict(launches=launches + launches_c)
+
+
+def _replay(mapper, frames, grids, threaded=False, tick=None):
+    """Feed ``frames`` (phase 11's) to ``mapper``; a threaded mapper joins
+    after each run of one stream's events. ``tick`` replaces the mapper's
+    tick. Returns the ticks' harvested diagnostics (None where none)."""
+    out = []
+    for frame in frames:
+        events = frame[:-1]
+        for i, ev in enumerate(events):
+            if ev[0] == "imu":
+                mapper.on_imu(ev[1], ev[2], ev[3])
+            elif ev[0] == "scan":
+                mapper.on_scan(ev[1], grids[ev[1]])
+            if threaded and (i + 1 == len(events)
+                             or events[i + 1][0] != ev[0]):
+                mapper.join(timeout=600.0)
+        out.append((tick or mapper.tick)())
+    return out
+
+
+def run_threaded(lio_frames=None, card="", device="cuda",
+                 duration_s=MAPPER_S):
+    """15d: the threaded mapper on the card. Lockstep: phase 11's events
+    (configs/lio.yaml but the ignition after LOCKSTEP_INIT_M of path, the
+    vendored scan at 16 × 1800) up to the frame whose tick dispatches the
+    third solve after the ignition's, through
+    ThreadedLocalMapper(optimizer_thread=False) with a join after each
+    stream's events, held against a sync LocalMapper that delivers its
+    models' graph-update notifications after each tick, as the threaded
+    mapper's spinners do (defer_notifications); publishers and diagnostics
+    on the threaded mapper's smoother. Free-running: the JAX test's
+    session with the optimizer thread. Returns the K1 and K2 launches.
+    ``device="cpu"`` (and a shorter ``duration_s`` of events to draw from)
+    rehearses the phase off the card."""
+    from beam_slam_tpu_torch.obs import diagnostics as tdiag
+    from beam_slam_tpu_torch.obs.publishers import (Odometry3DPublisher,
+                                                    Path3DPublisher)
+    from beam_slam_tpu_torch.ops import knn
+    from beam_slam_tpu_torch.pipeline.local_mapper import LocalMapper
+    from beam_slam_tpu_torch.pipeline.threaded import ThreadedLocalMapper
+    k1 = _k1()
+    dev = None if device == "cuda" else device   # entry points: the card
+
+    def lockstep_config():
+        cfg = _mapper_config("LIO")
+        cfg.init.min_trajectory_length_m = LOCKSTEP_INIT_M
+        return cfg
+    if lio_frames is None:
+        _, frames, grids, _, _ = _mapper_frames("LIO", duration_s, dev,
+                                                through_log=False)
+    else:
+        frames, grids = lio_frames
+    k1.launches = knn.knn_topk.launches = 0
+    # PyTorch's deterministic algorithms for the two lockstep runs: with
+    # index_add_'s float atomics two runs of one mapper on the card part by
+    # more than the bound by this tick (the ignition solve amplifies the
+    # sums' order); with them they do not part at all
+    was_det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        oracle = defer_notifications(LocalMapper(lockstep_config(),
+                                                 device=dev))
+        n = 0
+        for n, frame in enumerate(frames, 1):
+            _replay(oracle, [frame], grids)
+            if oracle.initialized and oracle.smoother.solve_count >= 4:
+                break
+        oracle.flush()
+        t_oracle = time.perf_counter() - t0
+        tm = ThreadedLocalMapper(lockstep_config(), device=dev,
+                                 optimizer_thread=False).start()
+        diag = tdiag.SmootherDiagnostics(tm.smoother)
+        odom = Odometry3DPublisher(tm.smoother)
+        path = Path3DPublisher(tm.smoother)
+        fired = []
+        odom.subscribe(lambda s: fired.append(
+            ("odom", s.stamp, tm.smoother.current_stamps()[-1])))
+        path.subscribe(lambda p: fired.append(
+            ("path", [t for t, _, _ in p], tm.smoother.current_stamps())))
+        t0 = time.perf_counter()
+        harvested = _replay(tm, frames[:n], grids, threaded=True,
+                            tick=lambda: diag.run_once_timed(run=tm.tick))
+        tm.join(timeout=600.0)
+        t_thr = time.perf_counter() - t0
+        n_harv = sum(h is not None for h in harvested)
+        odom_f = [f for f in fired if f[0] == "odom"]
+        path_f = [f for f in fired if f[0] == "path"]
+        rep = diag.report()
+        problems = tdiag.validate_graph(tm.smoother)
+        tm.stop()   # the window after T: both with their last solve
+    finally:
+        torch.use_deterministic_algorithms(was_det)
+    a, b = window_positions(oracle), window_positions(tm)
+    worst = (max(float(np.abs(a[t] - b[t]).max()) for t in a)
+             if sorted(a) == sorted(b) else float("inf"))
+    launches = dict(k1=k1.launches, k2=knn.knn_topk.launches)
+    print(f"[15d] lockstep: the first {n} frames ({n * 0.1:.1f} s) of "
+          f"phase 11's events (ignition after {LOCKSTEP_INIT_M} m) through "
+          f"ThreadedLocalMapper("
+          f"optimizer_thread=False) and the sync LocalMapper with deferred "
+          f"notifications, both flushed, PyTorch's deterministic algorithms "
+          f"on: {len(a)} window states, {tm.smoother.solve_count}"
+          f" / {oracle.smoother.solve_count} solves dispatched, max|Δp| "
+          f"{worst:.2e} m (bound {MAPPER_LOCKSTEP_TOL}); wall {t_oracle:.1f}"
+          f" s / {t_thr:.1f} s; {n_harv} harvests, the odometry publisher "
+          f"fired {len(odom_f)}, the path publisher {len(path_f)} times; "
+          f"validate_graph {problems or 'clean'}; diagnostics: staleness "
+          f"{rep['staleness_s']:.3f} s, cycle median "
+          f"{1e3 * rep['cycle']['median']:.1f} ms, overruns "
+          f"{rep['overruns']} ({card})", flush=True)
+    if not (worst <= MAPPER_LOCKSTEP_TOL and tm.initialized
+            and tm.smoother.solve_count == oracle.smoother.solve_count):
+        raise RuntimeError("[15d] the lockstep threaded mapper disagrees")
+    if not (len(odom_f) == len(path_f) == n_harv > 0
+            and all(s == newest for _, s, newest in odom_f)
+            and all(ts == cur for _, ts, cur in path_f)
+            and not problems and np.isfinite(rep["staleness_s"])):
+        raise RuntimeError("[15d] publishers / diagnostics failed")
+
+    k1_0, k2_0 = k1.launches, knn.knn_topk.launches
+    t0 = time.perf_counter()
+    free = ThreadedLocalMapper(threaded_config(), device=dev).start()
+    traj = threaded_feed(free, device)
+    free.join(timeout=600.0)
+    free.stop()
+    wall = time.perf_counter() - t0
+    ate = (final_ate(free, traj) if free.smoother.current_stamps()
+           else float("inf"))   # never ignited: no window
+    launches["k1"] += k1.launches - k1_0
+    launches["k2"] += knn.knn_topk.launches - k2_0
+    print(f"[15d] free-running: tests/test_threaded_pipeline.py's session "
+          f"({THREADED_S} s, {THREADED_IMU_HZ:.0f} Hz IMU, "
+          f"{THREADED_LIDAR_HZ:.0f} Hz lidar, 16 × 504) with the optimizer "
+          f"thread: drops {free.dropped}, errors {free.errors}, "
+          f"{free.smoother.solve_count} solves, final-window ATE {ate:.4f} "
+          f"m after an SE(3) fit (bound {THREADED_ATE}); wall {wall:.1f} s; "
+          f"in 15d K1 {launches['k1']} and K2 {launches['k2']} launches "
+          f"({card})", flush=True)
+    if not (free.initialized and all(v == 0 for v in free.dropped.values())
+            and all(v == 0 for v in free.errors.values())
+            and free.smoother.solve_count >= 3 and ate < THREADED_ATE):
+        raise RuntimeError("[15d] the free-running threaded mapper failed")
+    return dict(launches=launches)
+
+
+def run_descriptors(card="", device="cuda"):
+    """15e: descriptors and the image database, card against CPU, on 12b's
+    seeded 640 × 480 texture and DESC_VIEWS shifted, noisy views of it."""
+    from scipy import ndimage
+
+    from beam_slam_tpu_torch.pipeline import sim_session as tss
+    from beam_slam_tpu_torch.vision import descriptors as dsc
+    from beam_slam_tpu_torch.vision import detector as det
+    from beam_slam_tpu_torch.vision.image_database import (ImageDatabase,
+                                                           train_vocabulary)
+    rng = np.random.default_rng(DESC_SEED)
+    base = _texture(np.random.default_rng(FRONT_END_SEED), tss.CAM.height,
+                    tss.CAM.width, 600)
+    views = [np.clip(ndimage.shift(base, rng.uniform(-6, 6, 2), order=1,
+                                   mode="nearest")
+                     + rng.normal(0, 2.0, base.shape), 0, 255)
+             .astype(np.float32) for _ in range(DESC_VIEWS)]
+    cfg = det.FastConfig(threshold=10, cell_size=24)
+    out = {}
+    t0 = time.perf_counter()
+    for side, dev in (("cuda", device), ("cpu", "cpu")):
+        descs = []
+        for img in views:
+            im = torch.as_tensor(img, device=dev)
+            xy, _, v = det.detect(im, cfg)
+            descs.append(dsc.compute(im, xy, v))
+        out[side] = descs
+        if side == "cuda":
+            _sync(dev)
+            ms = 1e3 * (time.perf_counter() - t0) / DESC_VIEWS
+    same = total = 0
+    for (dc, okc), (dp, okp) in zip(out["cuda"], out["cpu"]):
+        if not torch.equal(okc.cpu(), okp):
+            raise RuntimeError("[15e] the descriptors' masks differ")
+        bc = dsc._unpack(dc.cpu()[okp])
+        bp = dsc._unpack(dp[okp])
+        same += int((bc == bp).sum())
+        total += bc.numel()
+    share = 1.0 - same / total
+    matches = {}
+    for side in ("cuda", "cpu"):
+        d0, ok0 = out[side][0]
+        matches[side] = [tuple(t.cpu() for t in dsc.match(d0, ok0, d, ok))
+                         for d, ok in out[side][1:]]
+    match_eq = all(torch.equal(ic, ip) and torch.equal(gc, gp)
+                   for (ic, gc), (ip, gp) in zip(matches["cuda"],
+                                                 matches["cpu"]))
+    n_good = [int(g.sum()) for _, g in matches["cuda"]]
+    # the trained vocabulary from the card's descriptors on both sides
+    corpus = torch.cat([d for d, _ in out["cuda"]])
+    valid = torch.cat([ok for _, ok in out["cuda"]])
+    first = int(torch.nonzero(valid)[0])
+    vocab = {side: train_vocabulary(corpus.to(dev), valid.to(dev),
+                                    n_words=DESC_WORDS, n_iters=8,
+                                    first=first)
+             for side, dev in (("cuda", device), ("cpu", "cpu"))}
+    vocab_eq = torch.equal(vocab["cuda"].cpu(), vocab["cpu"])
+    answers = {}
+    for side, dev in (("cuda", device), ("cpu", "cpu")):
+        for name, db in (("default", ImageDatabase(device=dev)),
+                         ("trained", ImageDatabase(vocab=vocab[side]))):
+            half = DESC_VIEWS // 2
+            for i, (d, ok) in enumerate(out[side][:half]):
+                db.add_frame(float(i), d, ok)
+            answers[side, name] = [
+                [t for t, _ in db.query(d, ok, top_k=3, exclude_recent=0)]
+                for d, ok in out[side][half:]]
+    answers_eq = all(answers["cuda", n] == answers["cpu", n]
+                     for n in ("default", "trained"))
+    print(f"[15e] descriptors on {DESC_VIEWS} views of 12b's texture "
+          f"(numpy seed {DESC_SEED}), card vs CPU: masks equal, bits "
+          f"differing {100 * share:.3f}% (bound {100 * DESC_BITS:.1f}%), "
+          f"matches to view 0 equal {match_eq} ({min(n_good)}–{max(n_good)}"
+          f" good), trained vocabulary ({DESC_WORDS} words) equal "
+          f"{vocab_eq}, query answers equal {answers_eq} (default and "
+          f"trained vocabulary); detect + compute {ms:.1f} ms a view on the "
+          f"card ({card})", flush=True)
+    if not (share <= DESC_BITS and match_eq and vocab_eq and answers_eq):
+        raise RuntimeError("[15e] descriptors / database disagree")
+
+
+def run_calibration_viewer(card="", device="cuda"):
+    """15f: the vendored scan projected into 12a's camera card vs CPU, and
+    the artifacts written and read back."""
+    from beam_slam_tpu_torch.obs.artifacts import read_ply
+    from beam_slam_tpu_torch.obs.calibration_viewer import (
+        project_scan_to_camera, write_calibration_artifacts)
+    from beam_slam_tpu_torch.pipeline import sim_session as tss
+    from beam_slam_tpu_torch.pipeline.config import CalibrationConfig
+    cloud = _load_scan()
+    ident = np.array([1, 0, 0, 0], np.float32)
+    proj = {}
+    for side, dev in (("cuda", device), ("cpu", "cpu")):
+        grid = _observed_grid(cloud, ident, np.zeros(3, np.float32), dev)
+        proj[side] = project_scan_to_camera(grid.xyz, grid.valid, tss.Q_BL,
+                                           tss.P_BL, tss.Q_BC, tss.P_BC,
+                                           tss.CAM)
+    (uv_c, d_c, ok_c), (uv_p, d_p, ok_p) = proj["cuda"], proj["cpu"]
+    px = float(np.abs(uv_c - uv_p)[ok_p].max()) if ok_p.any() else 0.0
+    calib = CalibrationConfig(camera=tss.CAM, q_baselink_cam=tss.Q_BC,
+                              p_baselink_cam=tss.P_BC,
+                              q_baselink_lidar=tss.Q_BL,
+                              p_baselink_lidar=tss.P_BL)
+    with tempfile.TemporaryDirectory() as d:
+        art = write_calibration_artifacts(d, calib, grid=grid)
+        n_ply = len(read_ply(art["frames_ply"]))
+        with open(art["overlay_ppm"], "rb") as f:
+            magic, size = f.readline().strip(), f.readline().split()
+    print(f"[15f] calibration viewer: the vendored scan at {N_RINGS} × "
+          f"{WIDTH} into 12a's camera, card vs CPU: ok equal "
+          f"{np.array_equal(ok_c, ok_p)} ({int(ok_p.sum())} points in the "
+          f"image), max|Δuv| {px:.2e} px (bound {VIEWER_PX}); artifacts: "
+          f"{n_ply} frame points, overlay {magic.decode()} "
+          f"{b' '.join(size).decode()} with {art['n_projected']} points "
+          f"({card})", flush=True)
+    if not (np.array_equal(ok_c, ok_p) and ok_p.sum() > 100
+            and px <= VIEWER_PX and magic == b"P6"
+            and [int(x) for x in size] == [tss.CAM.width, tss.CAM.height]
+            and n_ply > 0 and art["n_projected"] == int(ok_p.sum())):
+        raise RuntimeError("[15f] the calibration viewer failed")
+
+
+def run_completion_phase(card="", flagship=None, batch=None,
+                         lio_frames=None, device="cuda", census=CENSUS,
+                         mapper_s=MAPPER_S):
+    """Phase 15. ``flagship`` / ``batch``: phase 4's and phase 5's problems
+    and results (rebuilt here when not given); ``lio_frames``: phase 11's
+    (frames, grids). Returns the K1 / K2 launches and K1's (1, 6000) row.
+    ``device="cpu"`` with a small ``census`` and a short ``mapper_s``
+    rehearses the phase off the card."""
+    from beam_slam_tpu_torch.solver import batched as bs
+    from beam_slam_tpu_torch.solver import gauss_newton as gn
+    from beam_slam_tpu_torch.utils import synthetic
+    t_phase = time.perf_counter()
+    options = gn.SolverOptions(max_iterations=10)
+    if flagship is None:
+        window, fams, _ = synthetic.build_lvio_window(
+            torch.Generator().manual_seed(0), device=device, **census)
+        t0 = time.perf_counter()
+        out, diag = gn.solve(window, fams, LOSSES, options)
+        _sync(device)
+        flagship = dict(window=window, fams=fams, out=out, diag=diag,
+                        ms=1e3 * (time.perf_counter() - t0))
+    if batch is None:
+        wins, fams_b, _ = synthetic.build_lvio_batch(
+            torch.Generator().manual_seed(1), BATCH, device=device, **census)
+        out_b, _ = bs.solve_batched_shared(wins, fams_b, LOSSES, options)
+        batch = dict(windows=wins, fams=fams_b, out=out_b)
+    pgo = run_pgo(card, device)
+    ba = run_sharded_ba(flagship, batch, card, device)
+    thr = run_threaded(lio_frames, card, device, mapper_s)
+    run_descriptors(card, device)
+    run_calibration_viewer(card, device)
+    wall = time.perf_counter() - t_phase
+    print(f"[15] phase 15 took {wall:.1f} s", flush=True)
+    return dict(launches=dict(k1=pgo["launches"] + ba["launches"]
+                              + thr["launches"]["k1"],
+                              k2=thr["launches"]["k2"]),
+                k1_6000=pgo["k1"])
+
+
+def _start_phase(mode):
+    """Start ``python3 chip_smoke.py <mode>`` in its own process, its
+    standard output to a temporary file (its errors pass through)."""
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             mode], cwd=ROOT, stdout=out, text=True)
+    return dict(proc=proc, out=out, mode=mode, t0=time.perf_counter())
+
+
+def _join_phase(run, tag, timeout=900):
+    """Wait for a phase started by _start_phase, print its lines
+    indented, and return what its ``{"launches": ...}`` line holds. Raises
+    if it failed."""
+    proc = run["proc"]
+    t_wait = time.perf_counter()
+    rc = proc.wait(timeout=timeout)
+    run["out"].seek(0)
+    lines = run["out"].read().splitlines()
+    print(f"[{tag}] phase {tag} in its own process (chip_smoke.py "
+          f"{run['mode']}): exit code {rc} after "
+          f"{time.perf_counter() - run['t0']:.1f} s, this process waited "
+          f"{time.perf_counter() - t_wait:.1f} s for it; its lines:",
+          flush=True)
+    rec = None
+    for ln in lines:
+        if ln.startswith('{"launches"'):
+            rec = json.loads(ln)
+        else:
+            print("  " + ln, flush=True)
+    if rc != 0 or rec is None:
+        raise RuntimeError(f"{tag}: chip_smoke.py {run['mode']} failed "
+                           f"(exit code {rc})")
+    return rec
+
+
+def _stop_phase(run):
+    if run["proc"].poll() is None:
+        run["proc"].kill()
+        run["proc"].wait()
+    run["out"].close()
+
+
 def main(only: str = "") -> int:
     # ---- 1. require CUDA
     if not torch.cuda.is_available():
@@ -3101,6 +3970,7 @@ def main(only: str = "") -> int:
         wanted = dict(k1=(chol,), k2=(knn,), k3=(moments,),
                       smoother=(chol, knn), mapper=(chol, knn),
                       lvio=(chol, knn), localization=(chol, knn),
+                      completion=(chol, knn),
                       **{"global": (chol, knn)})[
                           only.split("-")[0]]
         libs = {name: mod for name, mod in libs.items() if mod in wanted}
@@ -3125,7 +3995,8 @@ def main(only: str = "") -> int:
         print(card)
         return 0
     if only == "lvio":  # the vision phases alone
-        run_vision(card)
+        vision = run_vision(card)
+        print(json.dumps({"launches": vision["launches"]}))
         print(card)
         return 0
     if only == "global":  # global mapping alone
@@ -3134,6 +4005,10 @@ def main(only: str = "") -> int:
         return 0
     if only == "localization":  # 13a's map, then phase 14 on it
         run_localization(run_global(card, online_only=True)["loc"], card)
+        print(card)
+        return 0
+    if only == "completion":  # phase 15 alone
+        run_completion_phase(card)
         print(card)
         return 0
     if only in ("k2", "k3"):  # alone, on a map built at ground-truth poses
@@ -3213,6 +4088,8 @@ def main(only: str = "") -> int:
     solve_ms = _wall_ms(lambda: gn.solve(window, fams, LOSSES, options), 5)
     print(f"[4] flagship solve: median {solve_ms:.2f} ms over 5 "
           f"({options.max_iterations} LM steps, {card})", flush=True)
+    flagship = dict(window=window, fams=fams, out=out, diag=diag,
+                    ms=solve_ms)
 
     # ---- 5. shared-topology batched solve on the card
     wins, fams_b, losses_b = synthetic.build_lvio_batch(
@@ -3235,6 +4112,7 @@ def main(only: str = "") -> int:
           f"{float((diag_b.final_cost / diag_b.initial_cost).max()):.2e}), "
           f"{launches_batched} K1 launches; median {batch_ms:.2f} ms over 3 "
           f"({BATCH / batch_ms * 1e3:.1f} windows/s, {card})", flush=True)
+    batch = dict(windows=wins, fams=fams_b, out=out_b)
 
     # ---- 6.-9. the LIO front end at full width (K2, K3)
     lio = run_lio("cuda", card=card)
@@ -3245,17 +4123,26 @@ def main(only: str = "") -> int:
     k3_launches = run_radius(lio)
     lap("1-9")
 
-    # ---- 10. the LIO+IMU session of the fixed-lag smoother (K1, K2)
-    sess = run_session(card)
-    lap("10")
+    # ---- 12. the LVIO and VIO LocalMappers, the image front end (K1, K2),
+    # in a second process beside phases 10 and 11: it needs nothing of the
+    # phases before it, each process holds the host in its own GIL while
+    # the card idles ~98% under a mapper, and the script's wall must stay
+    # within its limit. Started after the kernels' times of phases 3–9 and
+    # joined before phase 13's, so those run with the card to themselves
+    vision_run = _start_phase("lvio")
+    try:
+        # ---- 10. the LIO+IMU session of the fixed-lag smoother (K1, K2)
+        sess = run_session(card)
+        lap("10")
 
-    # ---- 11. the LIO LocalMapper of configs/lio.yaml (K1, K2)
-    mapper = run_mapper(card)
-    lap("11")
+        # ---- 11. the LIO LocalMapper of configs/lio.yaml (K1, K2)
+        mapper = run_mapper(card)
+        lap("11")
 
-    # ---- 12. the LVIO and VIO LocalMappers, the image front end (K1, K2)
-    vision = run_vision(card)
-    lap("12")
+        vision = _join_phase(vision_run, "12")
+        lap("12")
+    finally:
+        _stop_phase(vision_run)
 
     # ---- 13. global mapping and the map refinement (K1, K2)
     glob = run_global(card)
@@ -3264,6 +4151,13 @@ def main(only: str = "") -> int:
     # ---- 14. localization: MultiScan, the tracker on 13a's map (K1, K2)
     local = run_localization(glob["loc"], card)
     lap("14")
+
+    # ---- 15. the coupled PGO and BA over factor shards, the sharded
+    # refinement step, the threaded mapper, descriptors and the image
+    # database, the calibration viewer (K1, K2)
+    comp = run_completion_phase(card, flagship, batch,
+                                (mapper["frames"], mapper["grids"]))
+    lap("15")
 
     # ---- records (K2 at the surface shape, the larger of the two)
     kb1, kb1_by = _chol_bound(1, 640)
@@ -3276,7 +4170,7 @@ def main(only: str = "") -> int:
         "launches": (launches_flagship + launches_batched
                      + sess["launches"]["k1"] + mapper["launches"]["k1"]
                      + vision["launches"]["k1"] + glob["launches"]["k1"]
-                     + local["launches"]["k1"]),
+                     + local["launches"]["k1"] + comp["launches"]["k1"]),
         "max_abs_err": max_err, "ms": times[1][0], "plain_ms": times[1][1],
         "bound_ms": kb1, "bound_by": kb1_by,
         # the plain version is the library pair cholesky_ex + cholesky_solve
@@ -3287,7 +4181,8 @@ def main(only: str = "") -> int:
         "replaces": "beam_slam_tpu/ops/pallas_knn.py:110",
         "launches": (lio["launches"] + sess["launches"]["k2"]
                      + mapper["launches"]["k2"] + vision["launches"]["k2"]
-                     + glob["launches"]["k2"] + local["launches"]["k2"]),
+                     + glob["launches"]["k2"] + local["launches"]["k2"]
+                     + comp["launches"]["k2"]),
         "max_abs_err": kc["k2"]["err"],
         "ms": k2s["ms"], "plain_ms": k2s["plain"],
         "bound_ms": k2s["bound"][0], "bound_by": k2s["bound"][1],
@@ -3314,7 +4209,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] not in ([], ["k1"], ["k2"], ["k3"], ["smoother"],
                             ["mapper"], ["lvio"], ["global"],
-                            ["localization"]):
+                            ["localization"], ["completion"]):
         sys.exit(f"usage: {sys.argv[0]} [k1 | k2 | k3 | smoother | mapper | "
-                 f"lvio | global | localization | knn-counts [cpu|cuda]]")
+                 f"lvio | global | localization | completion | "
+                 f"knn-counts [cpu|cuda]]")
     sys.exit(main(only=(sys.argv[1:] or [""])[0]))

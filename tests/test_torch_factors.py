@@ -230,7 +230,12 @@ def test_window_layout_and_retract_match_reference(problem):
 
 
 def test_bridge_rejects_unported_family():
+    """Every family of the JAX package is ported (the unary inverse-depth
+    one last): it converts, and a name the port does not know raises."""
     fam = jfc.InverseDepthUnaryReprojectionFactors.zeros(2)
+    out = bridge.family_from_numpy("InverseDepthUnaryReprojectionFactors",
+                                   _flat(fam), "cpu")
+    assert type(out).__name__ == "InverseDepthUnaryReprojectionFactors"
+    assert out.capacity == 2
     with pytest.raises(KeyError):
-        bridge.family_from_numpy("InverseDepthUnaryReprojectionFactors",
-                                 _flat(fam), "cpu")
+        bridge.family_from_numpy("NoSuchFactors", _flat(fam), "cpu")

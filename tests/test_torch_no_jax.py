@@ -50,7 +50,12 @@ def test_port_imports_without_jax():
                 "lidar.matchers", "global_mapping.active_submap",
                 "models.lidar_tracker", "models.lidar_feature_extractor",
                 "models.lidar_scan_deskewer", "models.lidar_aggregation",
-                "ops.native", "pipeline.sensor_log"):
+                "ops.native", "pipeline.sensor_log",
+                "parallel.distributed_pgo", "parallel.distributed_ba",
+                "parallel.multihost", "pipeline.threaded", "utils.timing",
+                "obs.diagnostics", "obs.publishers",
+                "obs.calibration_viewer", "vision.descriptors",
+                "vision.image_database"):
         assert f"beam_slam_tpu_torch.{new}" in mods, new
     proc = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
