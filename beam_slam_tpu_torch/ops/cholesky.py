@@ -19,6 +19,7 @@ XLA cholesky path gives the reference's single-window solve.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -230,8 +231,11 @@ def cholesky_solve_batched(H: torch.Tensor, g: torch.Tensor,
         raise RuntimeError(f"cholesky kernel launch failed: cudaError {err}")
     with _LAUNCHES_LOCK:  # the smoother's async worker launches K1 too
         cholesky_solve_batched.launches += 1
+        cholesky_solve_batched.shapes[(B, N)] += 1
     return x, info
 
 
 cholesky_solve_batched.launches = 0
+# launches by (B, N); the ATE runner reports the shapes its sessions gave K1
+cholesky_solve_batched.shapes = collections.Counter()
 _LAUNCHES_LOCK = threading.Lock()

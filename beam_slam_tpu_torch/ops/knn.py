@@ -38,6 +38,7 @@ from beam_slam_tpu_torch.ops import nvcc_build
 SOURCES = ("knn.cu",)
 KS = (1, 5, 8, 10)          # the k the kernel is instantiated for
 CHUNK = 1024                # plain version: query rows per distance block
+CPU_CHUNK = 128             # ... on the CPU, where a block stays in cache
 # The kernel's schedule (csrc/knn.cu: QT, W, T): a cluster of S CTAs takes
 # QUERY_TILE queries, one a lane; R is cut into steps of STEP refs, dealt
 # round-robin to the cluster's S·WARPS warps; S is one of CLUSTER_SIZES.
@@ -105,12 +106,20 @@ def _check(query, ref, ref_valid, k) -> None:
         raise ValueError("query, ref and ref_valid must be contiguous")
 
 
-def _distances(query, ref, ref_valid):
-    """[Q, R] squared distances by the plain version's expansion, +inf at
-    invalid refs."""
-    d = (torch.sum(query * query, dim=1, keepdim=True)
-         + torch.sum(ref * ref, dim=1)[None, :] - 2.0 * query @ ref.T)
-    return torch.where(ref_valid[None, :], d, torch.full_like(d, float("inf")))
+def _distances(query, ref, ref_valid, ref_sq=None):
+    """[Q, R] squared distances by the plain version's expansion
+    (|q|² + |r|²) - 2 q·r, +inf at invalid refs (``ref_valid`` None: all
+    valid). ``ref_sq``: the refs' |r|² as a [1, R] row, if already at hand.
+    One [Q, R] block is written in place: 2 q·r is exact in float32, so
+    subtracting it with ``alpha=2`` rounds as the subtraction of the
+    product does."""
+    if ref_sq is None:
+        ref_sq = torch.sum(ref * ref, dim=1)[None, :]
+    d = torch.sum(query * query, dim=1, keepdim=True) + ref_sq
+    d.sub_(query @ ref.T, alpha=2.0)
+    if ref_valid is None:
+        return d
+    return d.masked_fill_(~ref_valid[None, :], float("inf"))
 
 
 def knn_topk_reference(query: torch.Tensor, ref: torch.Tensor,
@@ -125,12 +134,13 @@ def knn_topk_reference(query: torch.Tensor, ref: torch.Tensor,
     padding). Finding them waits for the device."""
     keep = torch.nonzero(ref_valid).squeeze(1)
     if keep.numel() >= k:
-        ref, ref_valid = ref[keep], ref_valid[keep]
+        ref, ref_valid = ref[keep], None
     else:
         keep = None
+    ref_sq = torch.sum(ref * ref, dim=1)[None, :]
     idx, d2 = [], []
-    for qc in torch.split(query, CHUNK):
-        v, i = torch.topk(_distances(qc, ref, ref_valid), k, dim=1,
+    for qc in torch.split(query, CHUNK if query.is_cuda else CPU_CHUNK):
+        v, i = torch.topk(_distances(qc, ref, ref_valid, ref_sq), k, dim=1,
                           largest=False)
         idx.append(i if keep is None else keep[i])
         d2.append(v)

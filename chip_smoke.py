@@ -23,6 +23,14 @@
     python3 chip_smoke.py completion
                                  # build K1 and K2, then only phase 15: the
                                  # last modules of the port
+    python3 chip_smoke.py ate [seconds]
+                                 # build K1 and K2, then the ATE runner's
+                                 # LIO, VIO and LVIO sessions (default 60 s
+                                 # each), three processes at once; fails if
+                                 # a mode's ATE is not under 0.05 m
+    python3 chip_smoke.py ate-one MODE SECONDS cuda|cpu
+                                 # one runner session (phase 16's side
+                                 # process), its JSON line
     python3 chip_smoke.py knn-counts [cpu|cuda]
                                  # K2's schedule (its mirror) at the LIO
                                  # shapes: the insertions each warp runs
@@ -112,12 +120,20 @@ kernel against its plain PyTorch version on the card:
     mapper in lockstep on phase 11's events (its publishers and
     diagnostics) and free-running on the JAX test's session; binary
     descriptors and the image database card vs CPU; the calibration
-    viewer.
+    viewer;
+  * the ATE runner (beam_slam_tpu_torch/tools/run_ate_benchmark.py, phase
+    16): its LIO, VIO and LVIO sessions (lag 4 / 7 / 10 s, 64 / 64 / 128
+    states: K1 at (1, 1024) and (1, 2048), K2 in every registration) under
+    its sync oracle, 6 s each as the JAX package's always-on envelope
+    smoke, held to that smoke's bounds (ATE < 0.05 m; LIO more than 20
+    solves), and the LIO session on the CPU beside the card's, every
+    solve's newest state within 2e-3 m / 2e-3 rad.
 
 Phases print one line each; any failure raises and exits non-zero. In
 the whole run phase 12 runs in a second process (``chip_smoke.py lvio``)
-beside phases 10 and 11, on the same card; its lines are printed, indented,
-when it has ended, before phase 13 starts. The
+and phase 16 in four more (``chip_smoke.py ate-one``) beside phases 10
+and 11, on the same card; their lines are printed, indented, when they
+have ended, before phase 13 starts. The
 line before the last two is the kernels' JSON record, then the card's name
 and power limit, and the last line the run's JSON verdict. Requires CUDA:
 without a card it fails and prints no result.
@@ -1479,20 +1495,6 @@ def run_session(card="", device="cuda", n_keyframes=None):
                 bound=bound, err=sys_err)
 
 
-def _union_ms(intervals):
-    """Total length of the union of (start, end) intervals, in ms of their
-    microseconds: the card's busy time when two streams overlap."""
-    busy, end = 0.0, None
-    for a, b in sorted(intervals):
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    return busy / 1e3
-
-
 def _overlap_s(span, intervals):
     return sum(max(0.0, min(span[1], b) - max(span[0], a))
                for a, b in intervals)
@@ -1669,6 +1671,7 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S, mode="LIO",
     from beam_slam_tpu_torch.pipeline.local_mapper import LocalMapper
     from beam_slam_tpu_torch.solver import gauss_newton as gn
     from beam_slam_tpu_torch.solver import smoother as tsm
+    from beam_slam_tpu_torch.tools.run_ate_benchmark import union_ms
     from beam_slam_tpu_torch.utils.evaluation import ate_rmse
 
     cuda = device == "cuda"
@@ -1941,8 +1944,8 @@ def run_mapper(card="", device="cuda", duration_s=MAPPER_S, mode="LIO",
         return dict(launches=launches)
     on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if any("chol_solve" in e.name for e in on_dev):
-        busy = _union_ms([(e.time_range.start, e.time_range.end)
-                          for e in on_dev])
+        busy = union_ms([(e.time_range.start, e.time_range.end)
+                         for e in on_dev])
         print(f"[{tag}] the last {MAPPER_PROFILED} frames under the "
               f"profiler: {len(on_dev)} device ops, device time {busy:.2f} "
               f"ms of {1e3 * prof_wall:.1f} ms wall (the union over both "
@@ -3897,38 +3900,40 @@ def run_completion_phase(card="", flagship=None, batch=None,
                 k1_6000=pgo["k1"])
 
 
-def _start_phase(mode):
-    """Start ``python3 chip_smoke.py <mode>`` in its own process, its
-    standard output to a temporary file (its errors pass through)."""
+def _start_phase(*args, module=None):
+    """Start ``python3 chip_smoke.py <args>`` (or ``python3 -m <module>
+    <args>``) in its own process, its standard output to a temporary file
+    (its errors pass through)."""
     out = tempfile.TemporaryFile(mode="w+")
-    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                             mode], cwd=ROOT, stdout=out, text=True)
-    return dict(proc=proc, out=out, mode=mode, t0=time.perf_counter())
+    cmd = ["-m", module] if module else [str(ROOT / "chip_smoke.py")]
+    proc = subprocess.Popen([sys.executable, *cmd, *args], cwd=ROOT,
+                            stdout=out, text=True)
+    return dict(proc=proc, out=out, mode=" ".join(cmd[-1:] + list(args)),
+                t0=time.perf_counter())
 
 
-def _join_phase(run, tag, timeout=900):
+def _join_phase(run, tag, timeout=900, record='{"launches"'):
     """Wait for a phase started by _start_phase, print its lines
-    indented, and return what its ``{"launches": ...}`` line holds. Raises
-    if it failed."""
+    indented, and return what its JSON line that starts with ``record``
+    holds. Raises if it failed."""
     proc = run["proc"]
     t_wait = time.perf_counter()
     rc = proc.wait(timeout=timeout)
     run["out"].seek(0)
     lines = run["out"].read().splitlines()
-    print(f"[{tag}] phase {tag} in its own process (chip_smoke.py "
-          f"{run['mode']}): exit code {rc} after "
+    print(f"[{tag}] phase {tag} in its own process ({run['mode']}): "
+          f"exit code {rc} after "
           f"{time.perf_counter() - run['t0']:.1f} s, this process waited "
           f"{time.perf_counter() - t_wait:.1f} s for it; its lines:",
           flush=True)
     rec = None
     for ln in lines:
-        if ln.startswith('{"launches"'):
+        if ln.startswith(record):
             rec = json.loads(ln)
         else:
             print("  " + ln, flush=True)
     if rc != 0 or rec is None:
-        raise RuntimeError(f"{tag}: chip_smoke.py {run['mode']} failed "
-                           f"(exit code {rc})")
+        raise RuntimeError(f"{tag}: {run['mode']} failed (exit code {rc})")
     return rec
 
 
@@ -3939,7 +3944,152 @@ def _stop_phase(run):
     run["out"].close()
 
 
-def main(only: str = "") -> int:
+# ---- phase 16: the ATE runner's sessions (beam_slam_tpu_torch/tools/
+# run_ate_benchmark.py: its CONFIGS and its sync oracle) at the duration of
+# the JAX package's always-on envelope smoke (tests/test_envelope_e2e.py:
+# 25-33), each in a side process. LIO also runs on the CPU. The two LIO
+# sessions part by millimetres (1.5e-3–6.1e-3 m at each solve's newest
+# state on an H100): on the session's scene float32 rounding alone moves a
+# few of the ignition's registrations by up to ~1 cm, in the JAX package
+# too (its own registration run op by op parts from its jitted run by
+# 7.8e-3 m at 2.6 s; tests/test_torch_ate_runner.py). Their gap is
+# printed; what is held is the card's LIO session in lockstep: each
+# solve's problem solved again on the CPU, the window's states within the
+# bounds
+ATE_SMOKE_S = 6.0
+ATE_BOUND = 0.05                    # tests/test_envelope_e2e.py:32
+ATE_LIO_SOLVES = 20                 # tests/test_envelope_e2e.py:33
+ATE_POS_TOL = ATE_ROT_TOL = 2e-3    # tests/test_torch_vio_session.py:47
+ATE_SIDES = (("LIO", "cuda"), ("LIO", "cpu"), ("VIO", "cuda"),
+             ("LVIO", "cuda"))
+ATE_CPU_THREADS = 2                 # the host is shared with phases 10-12
+
+
+def run_ate_one(mode, seconds, device):
+    """One runner session in this process: one JSON line of its launches,
+    its record, the newest state (stamp, p, q) after each solve and, for
+    the card's LIO session, each solve's lockstep gap to the CPU: its
+    problem solved again on the CPU (with its options), the largest
+    position and rotation gap over the window's states."""
+    from beam_slam_tpu_torch.solver import gauss_newton as gn
+    from beam_slam_tpu_torch.tools import run_ate_benchmark as ate
+    if device == "cpu":
+        torch.set_num_threads(ATE_CPU_THREADS)
+    newest, lockstep, solve = {}, [], gn.solve
+
+    def solve_in_lockstep(window, families, losses, options):
+        out, diag = solve(window, families, losses, options)
+        out_c, _ = solve(window.to("cpu"),
+                         tuple(f.to("cpu") for f in families), losses,
+                         options)
+        act = out_c.imu.active
+        dp = (out.imu.p.cpu() - out_c.imu.p)[act].norm(dim=1)
+        q, q_c = out.imu.q.cpu()[act], out_c.imu.q[act]
+        dr = [_so3_err(a.numpy(), b.numpy()) for a, b in zip(q, q_c)]
+        lockstep.append([float(dp.max()), max(dr)])
+        return out, diag
+    if device == "cuda" and mode == "LIO":
+        gn.solve = solve_in_lockstep
+    try:
+        rec = ate.run_mode(mode, seconds,
+                           None if device == "cuda" else device,
+                           newest=newest)
+    finally:
+        gn.solve = solve
+    print(json.dumps({
+        "launches": {"k1": rec["k1_launches"], "k2": rec["k2_launches"]},
+        "ate": rec, "lockstep": lockstep,
+        "newest": [[s, p, q] for s, (p, q) in sorted(newest.items())]}),
+        flush=True)
+
+
+def start_ate_phase(seconds=ATE_SMOKE_S):
+    """Phase 16's sessions, each in its own process, started together."""
+    return [_start_phase("ate-one", mode, str(seconds), device)
+            for mode, device in ATE_SIDES]
+
+
+def join_ate_phase(runs, card=""):
+    """Wait for phase 16's sessions and hold them: each mode's ATE under
+    the envelope smoke's bound with solves (LIO, on the card and on the
+    CPU: more than it asks), and the card's LIO solves in lockstep with
+    the CPU. Returns the card's K1 / K2 launches. Raises if a session
+    failed or a check missed."""
+    recs = {side: _join_phase(run, "16")
+            for side, run in zip(ATE_SIDES, runs)}
+    wall = time.perf_counter() - min(r["t0"] for r in runs)
+    for (mode, device), r in recs.items():
+        a = r["ate"]
+        print(f"[16] {mode} on {device}: ATE {a['ate_rmse_m']:.6f} m over "
+              f"{a['n_poses']} poses (bound {ATE_BOUND}), {a['n_solves']} "
+              f"solves of {a['mean_solve_ms']:.1f} ms, wall "
+              f"{a['wall_s']:.1f} s for {a['duration_s']} s (RTF "
+              f"{a['rtf']:.2f}); K1 {a['k1_launches']} launches at (B, N) "
+              f"{a['k1_shapes']}, K2 {a['k2_launches']}; peak memory "
+              f"{a['peak_mem_gib']} GiB; idle {a['idle_share']} over a "
+              f"frame of {a['idle_frame_ms']} ms ({card})", flush=True)
+    bad = [side for side, r in recs.items()
+           if not (r["ate"]["ate_rmse_m"] < ATE_BOUND
+                   and r["ate"]["n_solves"] > 0)]
+    bad += [(mode, device, "solves") for (mode, device), r in recs.items()
+            if mode == "LIO" and r["ate"]["n_solves"] <= ATE_LIO_SOLVES]
+    card_s, cpu_s = (recs[("LIO", side)]["newest"]
+                     for side in ("cuda", "cpu"))
+    same = [s[0] for s in card_s] == [s[0] for s in cpu_s]
+    gaps = [(float(np.linalg.norm(np.subtract(a[1], b[1]))),
+             _so3_err(a[2], b[2])) for a, b in zip(card_s, cpu_s)] \
+        if same else [(float("inf"), float("inf"))]
+    steps = recs[("LIO", "cuda")]["lockstep"]
+    dp, dr = (max((g[i] for g in steps), default=float("inf"))
+              for i in (0, 1))
+    print(f"[16] LIO card vs CPU sessions: {len(card_s)} / {len(cpu_s)} "
+          f"solves at {'the same' if same else 'other'} stamps, newest "
+          f"states {max(g[0] for g in gaps):.3e} m / "
+          f"{max(g[1] for g in gaps):.3e} rad apart (printed, not held); "
+          f"in lockstep, {len(steps)} solves of the card's session solved "
+          f"again on the CPU: window states within {dp:.3e} m / {dr:.3e} "
+          f"rad (bounds {ATE_POS_TOL} / {ATE_ROT_TOL}); phase 16 took "
+          f"{wall:.1f} s in {len(runs)} side processes", flush=True)
+    if (bad or len(steps) != recs[("LIO", "cuda")]["ate"]["n_solves"]
+            or not (dp <= ATE_POS_TOL and dr <= ATE_ROT_TOL)):
+        raise RuntimeError(f"[16] the ATE sessions missed: {bad}, lockstep "
+                           f"{len(steps)} solves, {dp} m / {dr} rad")
+    cuda = [r for (_, dev), r in recs.items() if dev == "cuda"]
+    return dict(launches=dict(k1=sum(r["launches"]["k1"] for r in cuda),
+                              k2=sum(r["launches"]["k2"] for r in cuda)))
+
+
+def run_ate(seconds, card=""):
+    """``chip_smoke.py ate``: the runner's LIO, VIO and LVIO sessions of
+    ``seconds`` each, three processes at once on the card, through the
+    runner's command line. Prints each mode's JSON line; raises if a
+    session failed or a mode's ATE is not under ATE_BOUND."""
+    t0 = time.perf_counter()
+    modes = ("LIO", "VIO", "LVIO")
+    runs = [_start_phase("--modes", mode, "--duration", str(seconds),
+                         module="beam_slam_tpu_torch.tools.run_ate_benchmark")
+            for mode in modes]
+    failed = []
+    try:
+        for mode, run in zip(modes, runs):
+            try:
+                rec = _join_phase(run, "ate", timeout=None, record='{"mode"')
+            except RuntimeError as e:
+                failed.append(f"{mode}: {e}")
+                continue
+            print(json.dumps(rec), flush=True)
+            if not rec["ate_rmse_m"] < ATE_BOUND:
+                failed.append(f"{mode}: ATE {rec['ate_rmse_m']} m")
+    finally:
+        for run in runs:
+            _stop_phase(run)
+    print(f"[ate] {seconds} s sessions took {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
+    if failed:
+        raise RuntimeError(f"[ate] failed or missed {ATE_BOUND} m: {failed}")
+
+
+def main(only: str = "", seconds: float = 60.0) -> int:
     # ---- 1. require CUDA
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; none is visible")
@@ -3970,7 +4120,7 @@ def main(only: str = "") -> int:
         wanted = dict(k1=(chol,), k2=(knn,), k3=(moments,),
                       smoother=(chol, knn), mapper=(chol, knn),
                       lvio=(chol, knn), localization=(chol, knn),
-                      completion=(chol, knn),
+                      completion=(chol, knn), ate=(chol, knn),
                       **{"global": (chol, knn)})[
                           only.split("-")[0]]
         libs = {name: mod for name, mod in libs.items() if mod in wanted}
@@ -4009,6 +4159,10 @@ def main(only: str = "") -> int:
         return 0
     if only == "completion":  # phase 15 alone
         run_completion_phase(card)
+        print(card)
+        return 0
+    if only == "ate":  # the runner's sessions of ``seconds``, at once
+        run_ate(seconds, card)
         print(card)
         return 0
     if only in ("k2", "k3"):  # alone, on a map built at ground-truth poses
@@ -4128,8 +4282,11 @@ def main(only: str = "") -> int:
     # phases before it, each process holds the host in its own GIL while
     # the card idles ~98% under a mapper, and the script's wall must stay
     # within its limit. Started after the kernels' times of phases 3–9 and
-    # joined before phase 13's, so those run with the card to themselves
+    # joined before phase 13's, so those run with the card to themselves.
+    # ---- 16. the ATE runner's sessions (K1, K2), each in a side process
+    # beside them for the same reasons
     vision_run = _start_phase("lvio")
+    ate_runs = start_ate_phase()
     try:
         # ---- 10. the LIO+IMU session of the fixed-lag smoother (K1, K2)
         sess = run_session(card)
@@ -4141,8 +4298,11 @@ def main(only: str = "") -> int:
 
         vision = _join_phase(vision_run, "12")
         lap("12")
+        ate = join_ate_phase(ate_runs, card)
+        lap("16")
     finally:
-        _stop_phase(vision_run)
+        for run in [vision_run, *ate_runs]:
+            _stop_phase(run)
 
     # ---- 13. global mapping and the map refinement (K1, K2)
     glob = run_global(card)
@@ -4170,7 +4330,8 @@ def main(only: str = "") -> int:
         "launches": (launches_flagship + launches_batched
                      + sess["launches"]["k1"] + mapper["launches"]["k1"]
                      + vision["launches"]["k1"] + glob["launches"]["k1"]
-                     + local["launches"]["k1"] + comp["launches"]["k1"]),
+                     + local["launches"]["k1"] + comp["launches"]["k1"]
+                     + ate["launches"]["k1"]),
         "max_abs_err": max_err, "ms": times[1][0], "plain_ms": times[1][1],
         "bound_ms": kb1, "bound_by": kb1_by,
         # the plain version is the library pair cholesky_ex + cholesky_solve
@@ -4182,7 +4343,7 @@ def main(only: str = "") -> int:
         "launches": (lio["launches"] + sess["launches"]["k2"]
                      + mapper["launches"]["k2"] + vision["launches"]["k2"]
                      + glob["launches"]["k2"] + local["launches"]["k2"]
-                     + comp["launches"]["k2"]),
+                     + comp["launches"]["k2"] + ate["launches"]["k2"]),
         "max_abs_err": kc["k2"]["err"],
         "ms": k2s["ms"], "plain_ms": k2s["plain"],
         "bound_ms": k2s["bound"][0], "bound_by": k2s["bound"][1],
@@ -4207,10 +4368,16 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["knn-counts"]:
         knn_counts((sys.argv[2:] or ["cuda"])[0])
         sys.exit(0)
+    if sys.argv[1:2] == ["ate-one"] and len(sys.argv) == 5:
+        run_ate_one(sys.argv[2], float(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["ate"] and len(sys.argv) <= 3:
+        sys.exit(main("ate", float((sys.argv[2:] or [60.0])[0])))
     if sys.argv[1:] not in ([], ["k1"], ["k2"], ["k3"], ["smoother"],
                             ["mapper"], ["lvio"], ["global"],
                             ["localization"], ["completion"]):
         sys.exit(f"usage: {sys.argv[0]} [k1 | k2 | k3 | smoother | mapper | "
                  f"lvio | global | localization | completion | "
+                 f"ate [seconds] | ate-one MODE SECONDS cuda|cpu | "
                  f"knn-counts [cpu|cuda]]")
     sys.exit(main(only=(sys.argv[1:] or [""])[0]))

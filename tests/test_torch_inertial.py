@@ -275,6 +275,11 @@ def _global_entry(name):
     return cli.main(["--globalmap_dir", d, "--output_path", d + "/out"])
 
 
+def _ate_entry():
+    from beam_slam_tpu_torch.tools import run_ate_benchmark
+    return run_ate_benchmark.main(["--modes", "LIO", "--duration", "1"])
+
+
 ENTRY_POINTS = {
     "FixedLagSmoother": lambda: tsm.FixedLagSmoother(tsm.SmootherConfig()),
     "ImuPreintegrationModel": lambda: tio.ImuPreintegrationModel(),
@@ -287,6 +292,7 @@ ENTRY_POINTS = {
     "GlobalMapper": lambda: _global_entry("GlobalMapper"),
     "Submap.load": lambda: _global_entry("Submap.load"),
     "global_map_refinement_main": lambda: _global_entry("cli"),
+    "run_ate_benchmark": _ate_entry,
     "estimate_parameters": lambda: tal.estimate_parameters(
         np.arange(3.0), np.tile([1.0, 0, 0, 0], (3, 1)), np.zeros((3, 3)),
         np.arange(0.0, 2.0, 0.01), np.zeros((200, 3)), np.zeros((200, 3)),

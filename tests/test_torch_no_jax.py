@@ -55,7 +55,7 @@ def test_port_imports_without_jax():
                 "parallel.multihost", "pipeline.threaded", "utils.timing",
                 "obs.diagnostics", "obs.publishers",
                 "obs.calibration_viewer", "vision.descriptors",
-                "vision.image_database"):
+                "vision.image_database", "tools.run_ate_benchmark"):
         assert f"beam_slam_tpu_torch.{new}" in mods, new
     proc = subprocess.run([sys.executable, "-c", _PROBE, *mods], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)

@@ -77,10 +77,13 @@ def _close_window(out, ref, atol):
                 npt.assert_allclose(b, a, atol=atol, err_msg=f"{k}.{f}")
 
 
+# the JAX builder, jitted once for the file's windows
+_build = jax.jit(lambda k: synthetic.build_lvio_window(k, **CENSUS)[:2])
+
+
 @pytest.fixture(scope="module")
 def problem():
-    build = jax.jit(lambda k: synthetic.build_lvio_window(k, **CENSUS)[:2])
-    wj, fj = jax.block_until_ready(build(jax.random.PRNGKey(0)))
+    wj, fj = jax.block_until_ready(_build(jax.random.PRNGKey(0)))
     return (wj, fj) + _bridge(wj, fj)
 
 
@@ -163,10 +166,9 @@ def test_solve_matches_reference(problem):
 
 
 def test_solve_batched_shared_matches_reference():
-    build = jax.jit(jax.vmap(
-        lambda k: synthetic.build_lvio_window(k, **CENSUS)[:2]))
-    wj, fj = jax.block_until_ready(build(jax.random.split(
-        jax.random.PRNGKey(3), 2)))
+    wj, fj = jax.block_until_ready(jax.tree_util.tree_map(
+        lambda *x: jnp.stack(x),
+        *(_build(k) for k in jax.random.split(jax.random.PRNGKey(3), 2))))
     wt, ft = _bridge(wj, fj)
     tbs.assert_shared_topology(ft)
     w_ref, d_ref = jax.block_until_ready(jbs.solve_batched_shared(
