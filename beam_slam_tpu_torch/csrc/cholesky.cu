@@ -74,19 +74,16 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "cholesky_tile.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TB = 32;       // panel width = diagonal tile
 constexpr int UT = 64;       // trailing-update tile
 constexpr int NT = 256;      // threads per CTA
 constexpr int NW = NT / 32;  // warps per CTA
-constexpr int LD = TB + 4;   // padded shared row stride: rows stay 16-byte
-                             // aligned, and neither a column of scalars nor a
-                             // column of float4 collides on a bank
 constexpr int BW = 16;       // rows a lane fetches at once, backward pass
-constexpr unsigned FULL = 0xffffffffu;
 
 // The two halves of cluster.sync(): a rank that has arrived may go on with
 // work of its own and wait later; the others pass once every rank has arrived.
@@ -96,21 +93,6 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// Four consecutive floats of a shared-memory row, as one 128-bit read.
-__device__ __forceinline__ float4 ld4(const float* row, int g) {
-  return reinterpret_cast<const float4*>(row)[g];
-}
-
-__device__ __forceinline__ bool bad_pivot(float d) {
-  return !(d > 0.f) || !isfinite(d);
-}
-
-// 1/√d: the hardware's approximation and one Newton step.
-__device__ __forceinline__ float rsqrt_refined(float d) {
-  const float r = rsqrtf(d);
-  return r * (1.5f - (0.5f * d * r) * r);
 }
 
 // (ti, tl), tl ≤ ti, of the t-th tile of a lower triangle counted row by row.

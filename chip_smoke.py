@@ -36,13 +36,16 @@
                                  # shapes: the insertions each warp runs
 
 Builds the port's three hand-written CUDA kernels with nvcc for sm_90a, one
-nvcc process each, all started together: K1 (batched Cholesky factor+solve,
-one thread-block cluster per system, csrc/cholesky.cu), K2 (exact kNN top-k,
+nvcc process each, all started together: K1 (batched Cholesky factor+solve:
+a thread-block cluster per system, csrc/cholesky.cu, or for few large
+systems the whole card, csrc/cholesky_grid.cu), K2 (exact kNN top-k,
 csrc/knn.cu) and K3 (fixed-radius neighbourhood moments, csrc/moments.cu).
 K1 is held against its plain version over shapes from 1×1 to 64 systems of
-640² and one of 1024² (the smoother's), every cluster size, a NaN-poisoned
-upper triangle, bad pivots and a bit-equal repeat, and timed. Then it drives the port's paths and holds every
-kernel against its plain PyTorch version on the card:
+640², every cluster size, a NaN-poisoned upper triangle, bad pivots and a
+bit-equal repeat; both schedules, forced and by the rule, from 1024² to
+6001², the grid's own NaN, bad-pivot and repeat checks; and timed against
+the library pair. Then it drives the port's paths and holds every kernel
+against its plain PyTorch version on the card:
 
   * the flagship LVIO solve — one Levenberg–Marquardt bundle-adjustment
     solve of a 40-state window (39 IMU, 39 lidar relative-pose, 2048
@@ -305,6 +308,15 @@ def _spd(gen, B, N, cond=1e3):
     A = torch.randn(B, N, N, generator=gen)
     H = A @ A.transpose(1, 2) / N + torch.eye(N) / cond
     return H.cuda().contiguous(), torch.randn(B, N, generator=gen).cuda()
+
+
+def _spd_card(seed, B, N, cond=1e3):
+    """_spd's systems made on the card from a seeded CUDA generator: an
+    A·Aᵀ of N = 6000 takes seconds on the host."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.randn(B, N, N, generator=gen, device="cuda")
+    H = A @ A.transpose(1, 2) / N + torch.eye(N, device="cuda") / cond
+    return H.contiguous(), torch.randn(B, N, generator=gen, device="cuda")
 
 
 def _event_ms(fn, reps):
@@ -572,12 +584,13 @@ def _moments_check(moments, q, r, v, rad, label, cluster=None):
     return err, int(n.sum())
 
 
-def _chol_compare(chol, H, g, label, H_kernel=None, cluster=None):
+def _chol_compare(chol, H, g, label, H_kernel=None, **knobs):
     """K1 against its plain version on one batch of SPD systems; returns
     max |x − x_plain|. ``H_kernel`` is what the kernel is given instead of H
-    (the same lower triangle)."""
+    (the same lower triangle); ``knobs``: the wrapper's measurement knobs
+    (cluster, schedule)."""
     x, info = chol.cholesky_solve_batched(
-        H if H_kernel is None else H_kernel, g, cluster=cluster)
+        H if H_kernel is None else H_kernel, g, **knobs)
     x_ref, info_ref = chol.cholesky_solve_batched_reference(H, g)
     torch.cuda.synchronize()
     B, N = g.shape
@@ -595,10 +608,11 @@ def _chol_compare(chol, H, g, label, H_kernel=None, cluster=None):
     return err
 
 
-def cholesky_checks(card=""):
+def cholesky_checks(card="", deep=False):
     """K1 against its plain version on the card: agreement over shapes and
     cluster sizes, the upper triangle never read, bad pivots, bit-equal
-    repeats; then the times. Returns max |Δx| and the paired times."""
+    repeats; then the times; then both schedules at large N (grid_checks,
+    ``deep`` as there). Returns max |Δx| and the paired times."""
     from beam_slam_tpu_torch.ops import cholesky as chol
     kernel, plain = chol.cholesky_solve_batched, \
         chol.cholesky_solve_batched_reference
@@ -676,25 +690,140 @@ def cholesky_checks(card=""):
               f"{chosen[B]}, plain {times[B][1]:.3f} ms"
               + (f"; kernel ms by cluster size {per_c}" if per_c else "")
               + f" (CUDA events, {card})", flush=True)
-    # the smoother's system: 990 dof + the trash dof, padded to 1024
+    # the smoothers' system: 990 dof + the trash dof, padded to 1024 (both
+    # schedules' times against the library pair: grid_checks)
     H, g = _spd(gen, 1, 1024)
-    times[(1, 1024)] = _paired_ms(lambda: kernel(H, g), lambda: plain(H, g))
     per_c = {C: round(_event_ms(lambda: kernel(H, g, cluster=C), 20), 4)
              for C in sizes}
-    bound = _chol_bound(1, 1024)
-    print(f"[3] K1 B=1 N=1024: kernel {times[(1, 1024)][0]:.3f} ms at C="
-          f"{chosen[1]}, plain (cholesky_ex + cholesky_solve) "
-          f"{times[(1, 1024)][1]:.3f} ms, bound {bound[0]:.4f} ms "
-          f"({bound[1]}); kernel ms by cluster size {per_c} (CUDA events, "
-          f"{card})", flush=True)
-    # what a panel step costs at B=1: the time against N (N/32 steps)
+    print(f"[3] K1 cluster schedule B=1 N=1024: kernel ms by cluster size "
+          f"{per_c} (CUDA events, {card})", flush=True)
+    # what a panel step of the cluster schedule costs at B=1: the time
+    # against N (N/32 steps)
     by_n = {}
     for N in (32, 64, 128, 256, 384, 512, 640, 1024):
         H, g = _spd(gen, 1, N)
-        by_n[N] = round(_event_ms(lambda: kernel(H, g), 20), 4)
-    print(f"[3] K1 B=1 at C={chosen[1]}, kernel ms by N: {by_n} (CUDA events, "
-          f"{card})", flush=True)
+        by_n[N] = round(_event_ms(
+            lambda: kernel(H, g, schedule="cluster"), 20), 4)
+    print(f"[3] K1 cluster schedule B=1 at C={chosen[1]}, kernel ms by N: "
+          f"{by_n} (CUDA events, {card})", flush=True)
+    max_err = max(max_err, grid_checks(chol, card, times, deep))
     return dict(max_err=max_err, times=times)
+
+
+# The shapes at which both schedules of K1 are held against the plain
+# version: the smoothers' 1024, the global graph's and LVIO's 2048, the
+# 1000-keyframe pose graph's 6000, sizes between, an odd N, and batches.
+K1_GRID_SHAPES = ((1, 1024), (1, 1536), (1, 2000), (1, 2048), (1, 4096),
+                  (1, 6000), (2, 2048), (8, 1024), (1, 6001))
+
+
+def grid_checks(chol, card="", times=None, deep=False):
+    """K1's two schedules at large N: each, forced and by the rule, against
+    the plain version over K1_GRID_SHAPES; the grid schedule with a NaN
+    upper triangle, bad pivots and a bit-equal repeat; paired times of both
+    schedules against the library pair at (1, N) for the path's N. ``deep``
+    (``chip_smoke.py k1``) adds the times by N and by (B, N) that the rule's
+    thresholds come from. Returns max |Δx|; adds the times to ``times``."""
+    times = {} if times is None else times
+    dev = torch.cuda.current_device()
+    slots, ctas = chol.cluster_slots(dev), chol.grid_ctas(dev)
+    rule = {(B, N): chol.choose_schedule(B, N, ctas, slots)
+            for B, N in K1_GRID_SHAPES}
+    print(f"[3] K1 schedules: grid of {ctas} CTAs, panel "
+          f"{chol.GRID_PANEL}; the rule picks {rule}", flush=True)
+    max_err = 0.0
+    for i, (B, N) in enumerate(K1_GRID_SHAPES):
+        H, g = _spd_card(100 + i, B, N)
+        for sched in (None, "cluster", "grid"):
+            label = f" schedule {sched or 'by the rule: ' + rule[(B, N)]}"
+            max_err = max(max_err, _chol_compare(chol, H, g, label,
+                                                 schedule=sched))
+    for N in (2048, 6001):
+        H, g = _spd_card(200 + N, 2, N)
+        upper = torch.triu(torch.ones(N, N, dtype=torch.bool,
+                                      device="cuda"), 1)
+        max_err = max(max_err, _chol_compare(
+            chol, H, g, " grid, upper triangle NaN", schedule="grid",
+            H_kernel=H.masked_fill(upper, float("nan")).contiguous()))
+
+    # bad pivots: first, inside a later 32-wide sub-panel, last; the fourth
+    # system is sound
+    H, g = _spd_card(300, 4, 2048)
+    pivots = [1, 1000, 2048, 0]
+    for b, p in enumerate(pivots):
+        if p:
+            H[b, p - 1, p - 1] = -1.0
+    x, info = chol.cholesky_solve_batched(H, g, schedule="grid")
+    x_ref, info_ref = chol.cholesky_solve_batched_reference(H, g)
+    torch.cuda.synchronize()
+    err = float((x[3] - x_ref[3]).abs().max())
+    if not (info.tolist() == pivots == info_ref.tolist()
+            and bool(torch.isnan(x[:3]).all())
+            and err <= X_TOL * float(x_ref[3].abs().max())):
+        raise RuntimeError(f"K1 grid, indefinite systems: info="
+                           f"{info.tolist()} (plain {info_ref.tolist()}), "
+                           f"sound system off by {err}")
+    H, g = _spd_card(301, 1, 2048)
+    x1, _ = chol.cholesky_solve_batched(H, g, schedule="grid")
+    x2, _ = chol.cholesky_solve_batched(H, g, schedule="grid")
+    torch.cuda.synchronize()
+    if not torch.equal(x1, x2):
+        raise RuntimeError("K1 grid: two launches on one input differ")
+    print(f"[3] K1 grid at N=2048: bad pivots give info={info.tolist()} as "
+          f"the plain version's, x NaN there only, the sound system within "
+          f"{err:.3e}; two launches give bit-equal x", flush=True)
+
+    # paired times (plain, kernel, kernel, plain) at the path's N, B = 1
+    def kernel_ms(H, g, **knobs):
+        return _event_ms(lambda: chol.cholesky_solve_batched(H, g, **knobs),
+                         10)
+    for N in (1024, 2048, 6000):
+        H, g = _spd_card(400 + N, 1, N)
+        row = {}
+        for sched in ("cluster", "grid"):
+            row[sched] = _paired_ms(
+                lambda: chol.cholesky_solve_batched(H, g, schedule=sched),
+                lambda: chol.cholesky_solve_batched_reference(H, g),
+                reps=10)
+        default = chol.choose_schedule(1, N, ctas, slots)
+        times[(1, N)] = row[default] + (default,)
+        bound = _chol_bound(1, N)
+        print(f"[3] K1 B=1 N={N}: cluster {row['cluster'][0]:.4f} ms, grid "
+              f"{row['grid'][0]:.4f} ms, by the rule ({default}) "
+              f"{row[default][0]:.4f} ms; library pair (cholesky_ex + "
+              f"cholesky_solve) {row[default][1]:.4f} ms; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}) (CUDA events, in turns, "
+              f"{card})", flush=True)
+    # where the rule keeps the cluster schedule: the flagship's, the batched
+    # refinement's and the submap batch's shapes, timed in turns (forced,
+    # rule, rule, forced)
+    for B, N in ((1, 640), (BATCH, 640), (64, 640), (5, 256)):
+        H, g = _spd_card(450 + B, B, N)
+        default = chol.choose_schedule(B, N, ctas, slots)
+        d_ms, c_ms = _paired_ms(
+            lambda: chol.cholesky_solve_batched(H, g),
+            lambda: chol.cholesky_solve_batched(H, g, schedule="cluster"))
+        print(f"[3] K1 B={B} N={N}: by the rule ({default}) {d_ms:.4f} ms, "
+              f"the cluster schedule forced {c_ms:.4f} ms (CUDA events, in "
+              f"turns, {card})", flush=True)
+    if not deep:
+        return max_err
+    by_n = {}
+    for N in (512, 640, 768, 896, 1024, 1536, 2048, 3072, 4096, 6000):
+        H, g = _spd_card(600 + N, 1, N)
+        by_n[N] = {s: round(kernel_ms(H, g, schedule=s), 4)
+                   for s in ("cluster", "grid")}
+    print(f"[3] K1 ms by N at B=1, per schedule: {by_n} (CUDA events, "
+          f"{card})", flush=True)
+    by_bn = {}
+    for B in (2, 4, 8):
+        for N in (640, 1024, 1536, 2048, 3072, 4096):
+            H, g = _spd_card(700 + B * N, B, N)
+            by_bn[(B, N)] = {s: round(kernel_ms(H, g, schedule=s), 4)
+                             for s in ("cluster", "grid")}
+    print(f"[3] K1 schedules by (B, N), ms per schedule: {by_bn} (CUDA "
+          f"events, {card})", flush=True)
+    return max_err
 
 
 def _so3_err(q_a, q_b) -> float:
@@ -3394,6 +3523,33 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+def _solve_trace(fn):
+    """Where one solve's wall goes: ``fn`` once under the profiler, the
+    card's activity only. Returns (wall ms, ms until the host had queued
+    the whole solve, device ms of kernels and copies, device ops, K1's
+    device ms, K1's launches), or None when the profiler lost the events
+    three times (no K1 event seen)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            queued = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        on_dev = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        k1 = [e.time_range.elapsed_us() for e in on_dev
+              if "chol_solve" in e.name]
+        if k1:
+            return (wall * 1e3, queued * 1e3,
+                    sum(e.time_range.elapsed_us() for e in on_dev) / 1e3,
+                    len(on_dev), sum(k1) / 1e3, len(k1))
+    return None
+
+
 def run_pgo(card="", device="cuda"):
     """15a: the coupled pose graph at 1000 keyframes (PGO_N) over factor
     shards: distributed_pgo.solve_distributed over PGO_SHARDS shards,
@@ -3401,9 +3557,10 @@ def run_pgo(card="", device="cuda"):
     on the card (PGO_ITERS LM steps, K1 at (1, 6000) each), then
     solve_single on the CPU plain path. Held to the reference test's
     bounds; K1 timed at (1, 6000) by CUDA events and by the port's
-    amortized timer, the library pair beside it. Returns the K1 launches
-    and the K1 row. ``device="cpu"`` rehearses the phase off the card
-    (no kernel, no times)."""
+    amortized timer, the library pair beside it; one more 1-shard solve
+    under the profiler says where its wall goes (_solve_trace). Returns the
+    K1 launches and the K1 row. ``device="cpu"`` rehearses the phase off
+    the card (no kernel, no times, no trace)."""
     from beam_slam_tpu_torch.device import to_numpy
     from beam_slam_tpu_torch.ops import cholesky as chol
     from beam_slam_tpu_torch.parallel import distributed_pgo as dpgo
@@ -3441,6 +3598,9 @@ def run_pgo(card="", device="cuda"):
     run("CPU", lambda: dpgo.solve_single(state.to("cpu"), fac.to("cpu"),
                                          pri.to("cpu"), PGO_ITERS),
         cuda=False)
+    # not the path's launches: the counts above are read already
+    trace = _solve_trace(lambda: dpgo.solve_single(
+        state, fac, pri, PGO_ITERS)) if cuda else None
     one = solves["1 shard"]
     gaps = {k: float(np.abs(s["p"] - one["p"]).max())
             for k, s in solves.items() if k != "1 shard"}
@@ -3488,6 +3648,19 @@ def run_pgo(card="", device="cuda"):
           f"{100 * abs(am_ms - ev_ms) / ev_ms:.1f}%, bound 10%), library "
           f"pair cholesky_ex + cholesky_solve {lib_ms:.4f} ms, bound "
           f"{bound:.4f} ms ({bound_by}) ({card})", flush=True)
+    if trace is not None:
+        wall, queued, busy, n_ops, k1_ms, k1_n = trace
+        print(f"[15a] one 1-shard solve under the profiler: wall {wall:.1f} "
+              f"ms, the host had queued all of it at {queued:.1f} ms; "
+              f"device time {busy:.2f} ms in {n_ops} device ops, idle "
+              f"{100 * (1 - busy / wall):.1f}% of the wall; K1 {k1_ms:.2f} "
+              f"ms in {k1_n} launches ({100 * k1_ms / busy:.1f}% of the "
+              f"device time, {100 * k1_ms / wall:.1f}% of the wall), the "
+              f"rest of the device {busy - k1_ms:.2f} ms ({card})",
+              flush=True)
+    elif cuda:
+        print("[15a] one 1-shard solve under the profiler: the profiler "
+              "lost its events; device time not measured", flush=True)
     if not (all(v <= PGO_POS_TOL for v in gaps.values())
             and all(v <= PGO_GT_TOL for v in truth.values())
             and all(v <= PGO_COST_RATIO for v in ratio.values())):
@@ -4172,7 +4345,7 @@ def main(only: str = "", seconds: float = 60.0) -> int:
         return 0
 
     # ---- 3. K1 vs its plain version on the card
-    k1 = cholesky_checks(card)
+    k1 = cholesky_checks(card, deep=only == "k1")
     max_err, times = k1["max_err"], k1["times"]
     if only == "k1":
         print(card)
@@ -4325,7 +4498,10 @@ def main(only: str = "", seconds: float = 60.0) -> int:
     k3s = kc["k3"]["times"]["surfaces"]
     print(json.dumps({"kernels": [{
         "name": "cholesky_solve_batched", "route": "cuda",
-        "source": "beam_slam_tpu_torch/csrc/cholesky.cu",
+        # two schedules: the line's times are the cluster schedule's at
+        # (1, 640); the grid schedule carries the path's (1, N ≥ 896)
+        "source": "beam_slam_tpu_torch/csrc/cholesky.cu + "
+                  "beam_slam_tpu_torch/csrc/cholesky_grid.cu",
         "replaces": "beam_slam_tpu/ops/pallas_cholesky.py:226",
         "launches": (launches_flagship + launches_batched
                      + sess["launches"]["k1"] + mapper["launches"]["k1"]

@@ -203,3 +203,111 @@ def test_cluster_override_is_checked():
         tc.cholesky_solve_batched(H, g, cluster=3)
     x, _ = tc.cholesky_solve_batched(H, g, cluster=4)  # ignored off the card
     assert np.isfinite(x.numpy()).all()
+
+
+# ---- the grid schedule's mirror (csrc/cholesky_grid.cu): wide panels that
+# end mid-panel or on a panel's edge, two 32-wide sub-panels a diagonal
+# block
+
+GRID_N = [1, 63, 64, 65, 100, 129, 257, 520, 577]
+
+
+@pytest.mark.parametrize("N", GRID_N)
+def test_grid_mirror_matches_library_plain_version(N):
+    H, g = _make_spd(50 + N, 2, N)
+    x, info = tc.cholesky_solve_grid_mirror(*_t(H, g))
+    x_ref, info_ref = tc.cholesky_solve_batched_reference(*_t(H, g))
+    _assert_close(x.numpy(), x_ref.numpy())
+    assert info.dtype == torch.int32
+    assert (info.numpy() == 0).all() and (info_ref.numpy() == 0).all()
+
+
+@pytest.mark.parametrize("N", GRID_N)
+def test_grid_mirror_matches_pallas_kernel(N):
+    """As test_mirror_matches_pallas_kernel: the JAX kernel on the system
+    padded to a multiple of 128 with the identity and zeros."""
+    H, g = _make_spd(60 + N, 1, N)
+    Np = -(-N // 128) * 128
+    Hp = np.broadcast_to(np.eye(Np, dtype=np.float32), (1, Np, Np)).copy()
+    Hp[:, :N, :N] = H
+    gp = np.zeros((1, Np), np.float32)
+    gp[:, :N] = g
+    x_ref = np.asarray(pc.cholesky_solve_batched(jnp.asarray(Hp),
+                                                 jnp.asarray(gp), bc=4))
+    x, info = tc.cholesky_solve_grid_mirror(*_t(H, g))
+    _assert_close(x.numpy(), x_ref[:, :N])
+    assert (info.numpy() == 0).all()
+
+
+@pytest.mark.parametrize("N", GRID_N)
+def test_grid_mirror_never_reads_the_upper_triangle(N):
+    H, g = _make_spd(70 + N, 1, N)
+    x, _ = tc.cholesky_solve_grid_mirror(*_t(H, g))
+    Hn = H.copy()
+    Hn[:, np.triu_indices(N, 1)[0], np.triu_indices(N, 1)[1]] = np.nan
+    x_nan, info = tc.cholesky_solve_grid_mirror(*_t(Hn, g))
+    np.testing.assert_array_equal(x_nan.numpy(), x.numpy())
+    assert (info.numpy() == 0).all()
+
+
+# first pivot; the first panel's second 32-wide sub-panel and its last
+# pivot; the second panel's second sub-panel; the ragged last panel; the
+# last pivot
+@pytest.mark.parametrize("pivot", [1, 32 + 9, 64, 64 + 32 + 7, 258, 260])
+def test_grid_mirror_bad_pivot_info_and_nan(pivot):
+    H, g = _make_spd(80, 3, 260)
+    H[1, pivot - 1, pivot - 1] = -1.0
+    x, info = tc.cholesky_solve_grid_mirror(*_t(H, g))
+    x_ref, info_ref = tc.cholesky_solve_batched_reference(*_t(H, g))
+    assert info.tolist() == [0, pivot, 0] == info_ref.tolist()
+    assert np.isnan(x[1].numpy()).all()
+    for b in (0, 2):   # the other systems of the batch are unaffected
+        _assert_close(x[b].numpy(), x_ref[b].numpy())
+
+
+# the schedule rule: the grid where the card measured it faster for the
+# SMs the cluster schedule keeps busy (B·C), the cluster schedule elsewhere
+@pytest.mark.parametrize("B,N,n_sms,slots,expected", [
+    (1, 640, 132, SLOTS_16, "cluster"), (1, 768, 132, SLOTS_16, "cluster"),
+    (1, 895, 132, SLOTS_16, "cluster"), (1, 896, 132, SLOTS_16, "grid"),
+    (1, 1024, 132, SLOTS_16, "grid"), (1, 6000, 132, SLOTS_16, "grid"),
+    (2, 2047, 132, SLOTS_16, "cluster"), (2, 2048, 132, SLOTS_16, "grid"),
+    (4, 2048, 132, SLOTS_16, "cluster"), (4, 3072, 132, SLOTS_16, "grid"),
+    (8, 1024, 132, SLOTS_16, "cluster"), (8, 3072, 132, SLOTS_16, "grid"),
+    # five clusters of 16 keep 80 SMs busy: past what was measured
+    (5, 6000, 132, SLOTS_16, "cluster"), (9, 6000, 132, SLOTS_16, "cluster"),
+    (64, 640, 132, SLOTS_16, "cluster"), (5, 256, 132, SLOTS_16, "cluster"),
+    # without clusters of 16, one system keeps 8 SMs busy and two keep 16:
+    # the rule keys on the SMs busy
+    (1, 895, 132, SLOTS_8, "cluster"), (1, 896, 132, SLOTS_8, "grid"),
+    (2, 895, 132, SLOTS_8, "cluster"), (2, 896, 132, SLOTS_8, "grid"),
+    # no cooperative grid on the card
+    (1, 6000, 0, SLOTS_16, "cluster")])
+def test_schedule_rule(B, N, n_sms, slots, expected):
+    assert tc.choose_schedule(B, N, n_sms, slots) == expected
+
+
+def test_schedule_thresholds_are_the_measured_ones():
+    assert tc.GRID_MIN_N == {16: 896, 32: 2048, 64: 3072}
+    assert tc.GRID_MAX_B == 8 and tc.GRID_PANEL == 64
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(schedule="blocked"), dict(schedule="Grid"),
+    dict(cluster=4, schedule="grid"), dict(cluster=3, schedule="cluster")])
+def test_schedule_override_is_checked(knobs):
+    H, g = _t(*_make_spd(7, 1, 8))
+    with pytest.raises(ValueError):
+        tc.cholesky_solve_batched(H, g, **knobs)
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(schedule="grid"), dict(schedule="cluster"),
+    dict(schedule="cluster", cluster=4), dict(cluster=2)])
+def test_schedule_override_takes_the_plain_version_on_the_cpu(knobs):
+    H, g = _t(*_make_spd(8, 2, 40))
+    before = tc.cholesky_solve_batched.launches
+    x, info = tc.cholesky_solve_batched(H, g, **knobs)
+    x_plain, _ = tc.cholesky_solve_batched_reference(H, g)
+    assert tc.cholesky_solve_batched.launches == before
+    np.testing.assert_array_equal(x.numpy(), x_plain.numpy())

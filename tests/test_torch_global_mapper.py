@@ -13,7 +13,16 @@ reference's (2e-3 m / 2e-3 rad, ``successful`` equal) and its graph fed the
 reference's loop factors, as tests/test_torch_vio_session.py feeds lidar
 factors, so that the comparison of its submap poses after every solve
 (2e-3 m / 2e-3 rad) holds the graph alone.
+
+The reference's run (~1.5 min of CPU compile and run) is recorded in
+tests/data/global_mapper_jax.json.gz (tests/test_torch_jax_recording.py); the
+slow test_recording_is_the_jax_packages_run runs it again and holds it to the
+recording, and ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+tests/test_torch_global_mapper.py record`` rewrites it.
 """
+
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -31,6 +40,8 @@ from beam_slam_tpu_torch.solver import gauss_newton as tgn
 from beam_slam_tpu_torch.solver import smoother as tsm
 from test_torch_global_map import (IDENTITY, REG_P, REG_R, assert_pose_close,
                                    chunks, features_j, to_port)
+
+import test_torch_jax_recording as jax_recording
 
 torch.set_num_threads(2)
 
@@ -125,40 +136,63 @@ def _drive(m, side):
                 reloc=reloc)
 
 
-@pytest.fixture(scope="module")
-def runs():
+RECORDING = "global_mapper_jax"
+
+
+def jax_run():
+    """The reference's mapper over the chunks: what _drive returns, its
+    submaps, its candidate searches and its loop registrations."""
     mj = _mapper(jgm, jgmap, jsm, jgn)
     mj.map.candidate_search = _Record(jreloc.EuclideanCandidateSearch(
         max_distance_m=6.0, skip_recent=1))
     mj.map.refinement = _Record(mj.map.refinement)
-    out_j = _drive(mj, 0)
+    out = _drive(mj, 0)
+    return dict(
+        out=out,
+        submaps=[dict(stamp=sm.stamp, p=np.asarray(sm.p),
+                      keyframes=len(sm.lidar_keyframes))
+                 for sm in mj.map.submaps],
+        candidates=mj.map.candidate_search.calls,
+        refinements=[(ms, qs, dict(successful=bool(r.successful),
+                                   dq=np.asarray(r.dq), dp=np.asarray(r.dp),
+                                   information=np.asarray(r.information)))
+                     for ms, qs, r in mj.map.refinement.calls])
+
+
+@pytest.fixture(scope="module")
+def runs():
+    ref = jax_recording.load(RECORDING)
     mt = _mapper(tgm, tgmap, tsm, tgn, device="cpu")
     mt.map.candidate_search = _Record(treloc.EuclideanCandidateSearch(
         max_distance_m=6.0, skip_recent=1))
-    mt.map.refinement = _Replay(mt.map.refinement, mj.map.refinement.calls)
+    mt.map.refinement = _Replay(
+        mt.map.refinement, [(ms, qs, types.SimpleNamespace(**r))
+                            for ms, qs, r in ref["refinements"]])
     out_t = _drive(mt, 1)
-    return dict(mj=mj, mt=mt, j=out_j, t=out_t)
+    return dict(ref=ref, mt=mt, j=ref["out"], t=out_t)
 
 
 def test_loop_closure_corrects_drift_in_both(runs):
     """The reference test's criteria, on both sides."""
-    for side in ("j", "t"):
-        out, m = runs[side], runs["m" + side]
-        assert len(m.map.submaps) >= 3
+    sides = dict(j=[(sm["stamp"], sm["p"]) for sm in runs["ref"]["submaps"]],
+                 t=[(sm.stamp, sm.p) for sm in runs["mt"].map.submaps])
+    for side, submaps in sides.items():
+        out = runs[side]
+        assert len(submaps) >= 3
         assert out["loops"] + out["found"] >= 1
-        last = m.map.submaps[-1]
-        y_err = abs(last.p[1] - YS[-2 if last.stamp == 6.0 else -1])
-        assert y_err < 0.25, (side, last.p, y_err)
+        stamp, p = submaps[-1]
+        y_err = abs(p[1] - YS[-2 if stamp == 6.0 else -1])
+        assert y_err < 0.25, (side, p, y_err)
 
 
 def test_same_submaps_candidates_and_registrations(runs):
-    mj, mt = runs["mj"], runs["mt"]
+    ref, mt = runs["ref"], runs["mt"]
     assert [s.stamp for s in mt.map.submaps] == \
-        [s.stamp for s in mj.map.submaps]
+        [s["stamp"] for s in ref["submaps"]]
     assert [len(s.lidar_keyframes) for s in mt.map.submaps] == \
-        [len(s.lidar_keyframes) for s in mj.map.submaps]
-    assert mt.map.candidate_search.calls == mj.map.candidate_search.calls
-    assert mt.map.refinement.checked == len(mj.map.refinement.calls) >= 2
+        [s["keyframes"] for s in ref["submaps"]]
+    assert mt.map.candidate_search.calls == ref["candidates"]
+    assert mt.map.refinement.checked == len(ref["refinements"]) >= 2
     assert not mt.map.refinement.recorded
     assert runs["t"]["loops"] == runs["j"]["loops"]
     assert runs["t"]["found"] == runs["j"]["found"]
@@ -222,3 +256,14 @@ def test_local_mapper_feeds_global_mapper():
     assert [k.stamp for k in kfs] == [0.5]
     np.testing.assert_array_equal(gm.map.submaps[0].p, p)
     assert gm.smoother.current_stamps() == [0.5]
+
+
+@pytest.mark.slow
+def test_recording_is_the_jax_packages_run():
+    """The reference's run again equals its recording."""
+    jax_recording.assert_same(jax_recording.encode_roundtrip(jax_run()),
+                              jax_recording.load(RECORDING))
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["record"]:
+    print(jax_recording.save(RECORDING, jax_run()))

@@ -15,9 +15,18 @@ states within 2e-3 m / 2e-3 rad (the registration-agreement bound of
 PERF.md §2: every scan's factor comes from a float32 registration in
 another order); the ignition at the same stamp and its state within
 1e-3 m / 1e-3 rad; the newest-state ATE of both sessions under 0.05 m.
+
+The reference's sessions (sync here, async in the async file) cost ~2 min of
+CPU compile and run each, so their results (and the FRAMEINIT ignition's) are
+recorded in tests/data/local_mapper_lio_jax.json.gz
+(tests/test_torch_jax_recording.py) and the port is held to the recording; the
+slow test_recording_is_the_jax_packages_session runs the reference again and
+holds it to the recording, and ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+tests/test_torch_local_mapper.py record`` rewrites it.
 """
 
 import dataclasses
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +55,8 @@ from beam_slam_tpu_torch.pipeline import sim_session as tss
 from beam_slam_tpu_torch.solver import gauss_newton as tgn
 from beam_slam_tpu_torch.solver import smoother as tsm
 from beam_slam_tpu_torch.utils.evaluation import ate_rmse
+
+import test_torch_jax_recording as jax_recording
 
 torch.set_num_threads(2)
 
@@ -117,19 +128,42 @@ def _ate(recs, traj):
     return ate_rmse(np.stack([est[s] for s in stamps]), np.asarray(gt.p))
 
 
-def run_sessions(async_solve: bool):
-    """The reference's events through both mappers (JAX first)."""
-    traj, events, _ = jss.generate_session_events(
+RECORDING = "local_mapper_lio_jax"
+
+
+def _events():
+    return jss.generate_session_events(
         mode="LIO", duration_s=DURATION, lidar_hz=LIDAR_HZ, seed=SEED)
+
+
+def jax_session(async_solve: bool, events=None):
+    """The reference's mapper over the session's events: its record after
+    every tick and what the tests read of it at the end."""
+    events = _events()[1] if events is None else events
+    mj = jlm.LocalMapper(_config(jcfg, jsi, async_solve))
+    recs = _drive(mj, events)
+    return dict(
+        recs=recs, init=dict(mj.init.result), trajectory=mj.trajectory(),
+        pose={t: mj.current_pose(t) for t in (None, DURATION + 0.05)},
+        solve_count=mj.smoother.solve_count)
+
+
+def _mode(async_solve: bool) -> str:
+    return "async" if async_solve else "sync"
+
+
+def run_sessions(async_solve: bool):
+    """The reference's events through the port's mapper, beside the
+    reference's recorded session."""
+    traj, events, _ = _events()
     flat = [("scan", ev[1], {k: np.asarray(getattr(ev[2], k))
                              for k in ("xyz", "time", "valid")})
             if ev[0] == "scan" else ev for ev in events]
     port_events = bridge.session_events_from_numpy(flat, "cpu")
-    mj = jlm.LocalMapper(_config(jcfg, jsi, async_solve))
-    recs_j = _drive(mj, events)
+    mj = jax_recording.load(RECORDING)[_mode(async_solve)]
     mt = tlm.LocalMapper(_config(tcfg, tsi, async_solve), device="cpu")
     recs_t = _drive(mt, port_events)
-    return dict(traj=traj, mj=mj, mt=mt, recs_j=recs_j, recs_t=recs_t)
+    return dict(traj=traj, mj=mj, mt=mt, recs_j=mj["recs"], recs_t=recs_t)
 
 
 def assert_sessions_agree(s):
@@ -143,7 +177,7 @@ def assert_sessions_agree(s):
             dp = float(np.linalg.norm(a["p"][t] - b["p"][t]))
             assert dp < POS_TOL, (label, t, dp)
             assert _rot_err(a["q"][t], b["q"][t]) < ROT_TOL, (label, t)
-    rj, rt = s["mj"].init.result, s["mt"].init.result
+    rj, rt = s["mj"]["init"], s["mt"].init.result
     assert rj["stamp"] == rt["stamp"]
     assert float(np.linalg.norm(rj["p"] - rt["p"])) < IGN_POS_TOL
     assert _rot_err(rj["q"], rt["q"]) < IGN_ROT_TOL
@@ -165,61 +199,93 @@ def test_sync_session_matches_reference(sync_session):
     sm = mt.smoother
     assert sm.solve_count >= 8 and sm._last_marginalized_stamps
     # the publisher surfaces: the trajectory, the newest and a predicted pose
-    tj, tt = mj.trajectory(), mt.trajectory()
+    tj, tt = mj["trajectory"], mt.trajectory()
     assert [t for t, *_ in tt] == [t for t, *_ in tj]
     for (_, _, pj), (_, _, pt) in zip(tj, tt):
         assert float(np.linalg.norm(pt - pj)) < POS_TOL
     for t in (None, DURATION + 0.05):
-        (qj, pj), (qt, pt) = mj.current_pose(t), mt.current_pose(t)
+        (qj, pj), (qt, pt) = mj["pose"][t], mt.current_pose(t)
         assert float(np.linalg.norm(pt - np.asarray(pj))) < POS_TOL, t
         assert _rot_err(qj, qt) < ROT_TOL, t
     mt.reset()   # the reset protocol: back to initialization
     assert not mt.initialized and not mt.smoother.current_stamps()
 
 
-def test_frameinit_ignition_matches_reference():
-    """FRAMEINIT mode (tests/test_initialization.py:92): a rotated-world
-    path with gyro bias and an IMU stream ignite both initializers at the
-    same stamp; the aligned ignition graph solves to the same states. The
-    smoothers are the session's (a 10 s lag), so the JAX solve is compiled
-    once in this file."""
+@pytest.mark.slow
+@pytest.mark.parametrize("case", ["sync", "async", "frameinit"])
+def test_recording_is_the_jax_packages_session(case):
+    """The reference's sessions run again equal their recording."""
+    live = (jax_frameinit() if case == "frameinit"
+            else jax_session(case == "async"))
+    jax_recording.assert_same(jax_recording.encode_roundtrip(live),
+                              jax_recording.load(RECORDING)[case])
+
+
+def _frameinit_data():
     import test_initialization as ti
-    bg_true = np.array([0.01, -0.015, 0.02])
-    kf_t, q_path, p_path, _, t_imu, w, a = ti.make_rotated_world_data(
-        bg_true=bg_true, rot=np.array([0.2, 0.25, -0.1]), T=4.0)
+    return ti.make_rotated_world_data(
+        bg_true=FRAMEINIT_BG, rot=np.array([0.2, 0.25, -0.1]), T=4.0)
+
+
+FRAMEINIT_BG = np.array([0.01, -0.015, 0.02])
+
+
+def jax_frameinit():
+    """The reference's FRAMEINIT initializer over the rotated-world path:
+    what add_pose returned at each pose, the ignition result, and the
+    smoother's window after it. Its smoother is the session's (a 10 s
+    lag)."""
+    kf_t, q_path, p_path, _, t_imu, w, a = _frameinit_data()
     smj = jsm.FixedLagSmoother(dataclasses.replace(
         _config(jcfg, jsi, False).smoother_config(), lag_duration=10.0))
-    smt = tsm.FixedLagSmoother(dataclasses.replace(
-        _config(tcfg, tsi, False).smoother_config(), lag_duration=10.0),
-        device="cpu")
     done = {}
     ij = jsi.SLAMInitialization(
         smj, jsi.InitParams(mode="FRAMEINIT", min_trajectory_length_m=2.0),
         JImuParams(), on_initialized=lambda r: done.update(jax=r))
+    for i in range(len(t_imu)):
+        ij.add_imu(t_imu[i], w[i], a[i])
+    flags = [ij.add_pose(float(kf_t[i]), q_path[i], p_path[i])
+             for i in range(len(kf_t))]
+    return dict(flags=flags, result=dict(done["jax"]),
+                stamps=smj.current_stamps(),
+                active={n: getattr(smj, n).active.copy() for n in ARENAS},
+                states={t: dict(smj.get_state(t))
+                        for t in smj.current_stamps()})
+
+
+def test_frameinit_ignition_matches_reference():
+    """FRAMEINIT mode (tests/test_initialization.py:92): a rotated-world
+    path with gyro bias and an IMU stream ignite both initializers at the
+    same stamp; the aligned ignition graph solves to the same states. The
+    reference's side is recorded with the sessions."""
+    kf_t, q_path, p_path, _, t_imu, w, a = _frameinit_data()
+    ref = jax_recording.load(RECORDING)["frameinit"]
+    smt = tsm.FixedLagSmoother(dataclasses.replace(
+        _config(tcfg, tsi, False).smoother_config(), lag_duration=10.0),
+        device="cpu")
+    done = {}
     it = tsi.SLAMInitialization(
         smt, tsi.InitParams(mode="FRAMEINIT", min_trajectory_length_m=2.0),
         TImuParams(), lidar_path=tsi.LidarPathInit(device="cpu"),
         on_initialized=lambda r: done.update(port=r), device="cpu")
     for i in range(len(t_imu)):
-        ij.add_imu(t_imu[i], w[i], a[i])
         it.add_imu(t_imu[i], w[i], a[i])
     for i in range(len(kf_t)):
-        fj = ij.add_pose(float(kf_t[i]), q_path[i], p_path[i])
         ft = it.add_pose(float(kf_t[i]), q_path[i], p_path[i])
-        assert fj == ft, i
-    assert it.initialized and done["port"]["stamp"] == done["jax"]["stamp"]
-    np.testing.assert_allclose(done["port"]["bg"], done["jax"]["bg"],
+        assert ref["flags"][i] == ft, i
+    res = ref["result"]
+    assert it.initialized and done["port"]["stamp"] == res["stamp"]
+    np.testing.assert_allclose(done["port"]["bg"], res["bg"], atol=1e-5)
+    np.testing.assert_allclose(done["port"]["bg"], FRAMEINIT_BG, atol=3e-3)
+    np.testing.assert_allclose(done["port"]["q_align"], res["q_align"],
                                atol=1e-5)
-    np.testing.assert_allclose(done["port"]["bg"], bg_true, atol=3e-3)
-    np.testing.assert_allclose(done["port"]["q_align"],
-                               done["jax"]["q_align"], atol=1e-5)
-    assert smt.current_stamps() == smj.current_stamps()
+    assert smt.current_stamps() == ref["stamps"]
     assert len(smt.current_stamps()) >= 4
     for n in ARENAS:
         np.testing.assert_array_equal(getattr(smt, n).active,
-                                      getattr(smj, n).active, err_msg=n)
+                                      ref["active"][n], err_msg=n)
     for t in smt.current_stamps():
-        st, sj = smt.get_state(t), smj.get_state(t)
+        st, sj = smt.get_state(t), ref["states"][t]
         assert float(np.linalg.norm(st["p"] - sj["p"])) < IGN_POS_TOL, t
         assert _rot_err(st["q"], sj["q"]) < IGN_ROT_TOL, t
 
@@ -339,3 +405,10 @@ def test_smoother_config_matches_reference_for_lio():
             assert getattr(ct, f.name) == getattr(cj, f.name), f.name
     for name in tgn.SolverOptions._fields:
         assert getattr(ct.solver, name) == getattr(cj.solver, name), name
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["record"]:
+    events = _events()[1]
+    print(jax_recording.save(RECORDING, dict(
+        **{_mode(a): jax_session(a, events) for a in (False, True)},
+        frameinit=jax_frameinit())))

@@ -24,24 +24,36 @@ shared it holds the smoother. Per tick: the same initialization, window
 stamps, counters, queue, factor and landmark counts and keyframes, window
 states within 2e-3 m / 2e-3 rad; the ignition at the same stamp; the
 newest-state ATE of both sessions under 0.05 m.
+
+The reference's session and its lidar factors are recorded in
+tests/data/lvio_session_jax.json.gz (tests/test_torch_jax_recording.py: ~2 min
+of CPU compile and run); the slow test_recording_is_the_jax_packages_session
+runs it again and holds it to the recording, and ``JAX_PLATFORMS=cpu
+PYTHONPATH=. python tests/test_torch_lvio_session.py record`` rewrites it.
 """
 
+import sys
+
 import numpy as np
+import pytest
 import torch
 
+import test_torch_jax_recording as jax_recording
 from test_torch_vio_session import (POS_TOL, ROT_TOL, assert_sessions_agree,
-                                    rot_err, run_sessions)
+                                    jax_session, rot_err, run_sessions)
 
 torch.set_num_threads(2)
 
 LVIO_DURATION = 3.0
+LVIO_SESSION = dict(mode="LVIO", duration=LVIO_DURATION,
+                    init=dict(mode="LIDAR", min_trajectory_length_m=1.0,
+                              min_observability=0.1), async_solve=False,
+                    shared_lidar=True)
+RECORDING = "lvio_session_jax"
 
 
 def test_lvio_session_matches_reference():
-    s = run_sessions("LVIO", LVIO_DURATION,
-                     dict(mode="LIDAR", min_trajectory_length_m=1.0,
-                          min_observability=0.1), async_solve=False,
-                     shared_lidar=True)
+    s = run_sessions(**LVIO_SESSION, recording=RECORDING)
     pairs = s["lidar_pairs"]
     assert len(pairs) >= 5
     for stamps, pair in pairs.items():
@@ -59,3 +71,15 @@ def test_lvio_session_matches_reference():
     assert last["factors"]["arena_rel"] >= 2
     sm = mt.smoother
     assert sm.solve_count >= 8 and sm._last_marginalized_stamps
+
+
+@pytest.mark.slow
+def test_recording_is_the_jax_packages_session():
+    """The reference's session run again equals its recording."""
+    jax_recording.assert_same(
+        jax_recording.encode_roundtrip(jax_session(**LVIO_SESSION)),
+        jax_recording.load(RECORDING))
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["record"]:
+    print(jax_recording.save(RECORDING, jax_session(**LVIO_SESSION)))

@@ -9,7 +9,15 @@ windows converge to ~2e-6, where float32 sums in another order differ by
 ~1e-8), every window's cost no
 higher than where it started, the total the sum of the windows' final
 costs; then ``run_submap_refinement(mesh=…)`` against the serial path on
-tests/test_torch_refinement.py's map (5e-4 m)."""
+tests/test_torch_refinement.py's map (5e-4 m).
+
+The reference's step over its mesh (~1 min of CPU compile) is recorded in
+tests/data/sharded_mesh_jax.json.gz (see tests/test_torch_jax_recording.py);
+the slow test_recording_is_the_jax_packages_step runs it again and holds it
+to the recording, and ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+tests/test_torch_sharded_mesh.py record`` rewrites it."""
+
+import sys
 
 import numpy as np
 import pytest
@@ -24,24 +32,41 @@ from beam_slam_tpu_torch.parallel import sharded as tsh
 from beam_slam_tpu_torch.solver import gauss_newton as tgn
 from test_torch_solver import _bridge
 
+import test_torch_jax_recording as jax_recording
+
 torch.set_num_threads(2)
 
 SOLVE_P, COST_RTOL, COST_ATOL = 5e-4, 1e-3, 1e-7
 
 
-@pytest.fixture(scope="module")
-def step():
-    windows, families, losses = synthetic.build_lvio_batch(
+RECORDING = "sharded_mesh_jax"
+
+
+def _batch():
+    return synthetic.build_lvio_batch(
         jax.random.PRNGKey(1), batch=8, n_kf=4, kf_dt=0.25, rate_hz=50.0)
-    out_j, diags_j, total_j = jsh.distributed_refinement_step(
+
+
+def jax_step(batch=None):
+    """The reference's refinement step over its 8-device mesh: the
+    windows' positions and final costs."""
+    windows, families, losses = _batch() if batch is None else batch
+    out, diags, _ = jsh.distributed_refinement_step(
         jsh.make_mesh(8), windows, families, losses,
         jgn.SolverOptions(max_iterations=3))
+    return dict(p=np.asarray(out.imu.p),
+                final_cost=np.asarray(diags.final_cost))
+
+
+@pytest.fixture(scope="module")
+def step():
+    windows, families, losses = _batch()
     wt, ft = _bridge(windows, families)
     mesh = tsh.make_mesh(8, devices=["cpu"])
     out_t, diags_t, total_t = tsh.distributed_refinement_step(
         mesh, wt, ft, losses, tgn.SolverOptions(max_iterations=3))
-    return (out_j, diags_j, total_j), (out_t, diags_t, total_t), (wt, ft,
-                                                                  losses)
+    return (jax_recording.load(RECORDING), (out_t, diags_t, total_t),
+            (wt, ft, losses))
 
 
 def test_mesh_layout():
@@ -56,11 +81,9 @@ def test_mesh_layout():
 
 
 def test_distributed_refinement_step_matches_reference(step):
-    (out_j, diags_j, total_j), (out_t, diags_t, total_t), _ = step
-    np.testing.assert_allclose(out_t.imu.p.numpy(), np.asarray(out_j.imu.p),
-                               atol=SOLVE_P)
-    np.testing.assert_allclose(diags_t.final_cost.numpy(),
-                               np.asarray(diags_j.final_cost),
+    ref, (out_t, diags_t, total_t), _ = step
+    np.testing.assert_allclose(out_t.imu.p.numpy(), ref["p"], atol=SOLVE_P)
+    np.testing.assert_allclose(diags_t.final_cost.numpy(), ref["final_cost"],
                                rtol=COST_RTOL, atol=COST_ATOL)
     assert np.isfinite(float(total_t))
     assert bool((diags_t.final_cost <= diags_t.initial_cost + 1e-6).all())
@@ -100,3 +123,14 @@ def test_submap_refinement_with_mesh_matches_serial():
     _, kfs_m = map_poses(gm_m)
     for (_, pa), (_, pb) in zip(kfs_s, kfs_m):
         np.testing.assert_allclose(pb, pa, atol=SOLVE_P)
+
+
+@pytest.mark.slow
+def test_recording_is_the_jax_packages_step():
+    """The reference's step run again equals its recording."""
+    jax_recording.assert_same(jax_recording.encode_roundtrip(jax_step()),
+                              jax_recording.load(RECORDING))
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["record"]:
+    print(jax_recording.save(RECORDING, jax_step()))

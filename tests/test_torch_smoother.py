@@ -19,10 +19,20 @@ final cost within rtol 1e-3 (float32 assembly in another order, then up to
 Also: the bridge's copy of a JAX smoother's host state (after which one
 more tick on each side agrees as above), and the hand-built configs/lio.yaml
 smoother configuration of chip_smoke.py against the JAX package's.
+
+The reference's sessions (the sync one's ticks, final host state and the tick
+after it, and the async tick's two: ~2 min of CPU compile and run) are recorded
+in tests/data/smoother_session_jax.json.gz (tests/test_torch_jax_recording.py);
+the slow test_recording_is_the_jax_packages_session runs it again and holds it
+to the recording, and ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+tests/test_torch_smoother.py record`` rewrites it.
 """
 
+import copy
 import dataclasses
 import importlib.util
+import os
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -41,6 +51,8 @@ from beam_slam_tpu_torch import bridge
 from beam_slam_tpu_torch.core import lie_np
 from beam_slam_tpu_torch.solver import gauss_newton as tgn
 from beam_slam_tpu_torch.solver import smoother as tsm
+
+import test_torch_jax_recording as jax_recording
 
 torch.set_num_threads(2)
 
@@ -151,6 +163,8 @@ def _state(sm):
 
 
 def _cost(diag):
+    if diag is None or isinstance(diag, tuple):   # None, or recorded
+        return diag
     return (float(diag.initial_cost), float(diag.final_cost),
             int(diag.iterations))
 
@@ -181,20 +195,41 @@ def _smoother_fields(sm):
     return fields
 
 
-@pytest.fixture(scope="module")
-def session():
-    ticks, gt = _transactions()
-    cfg_j, cfg_t = _configs()
-    sj, st = jsm.FixedLagSmoother(cfg_j), tsm.FixedLagSmoother(cfg_t, "cpu")
+RECORDING = "smoother_session_jax"
+
+
+def jax_session():
+    """The reference's smoother over the session's ticks: its state and
+    costs after each, its host state at the end, and its state and costs
+    after one more tick."""
+    ticks, _ = _transactions()
+    sj = jsm.FixedLagSmoother(_configs()[0])
     out = []
     for tick in ticks[:-1]:
         for txn in tick(jsm):
             sj.send_transaction(txn)
+        d = sj.run_once()
+        out.append((_state(sj), _cost(d)))
+    fields = copy.deepcopy(_smoother_fields(sj))   # the tick below mutates
+    for txn in ticks[-1](jsm):
+        sj.send_transaction(txn)
+    d = sj.run_once()
+    return dict(out=out, fields=fields, after=(_state(sj), _cost(d)))
+
+
+@pytest.fixture(scope="module")
+def session():
+    ticks, gt = _transactions()
+    cfg_t = _configs()[1]
+    st = tsm.FixedLagSmoother(cfg_t, "cpu")
+    ref = jax_recording.load(RECORDING)["sync"]
+    out = []
+    for tick, (state_j, dj) in zip(ticks[:-1], ref["out"]):
         for txn in tick(tsm):
             st.send_transaction(txn)
-        dj, dt = sj.run_once(), st.run_once()
-        out.append((_state(sj), _state(st), dj, dt))
-    return dict(ticks=ticks, gt=gt, sj=sj, st=st, out=out, cfg_t=cfg_t)
+        dt = st.run_once()
+        out.append((state_j, _state(st), dj, dt))
+    return dict(ticks=ticks, gt=gt, ref=ref, st=st, out=out, cfg_t=cfg_t)
 
 
 def test_session_ticks_match_reference(session):
@@ -228,64 +263,95 @@ def test_robustness_counters_match_reference(session):
 def test_smoother_from_numpy_round_trip(session):
     """The bridge's copy holds the JAX smoother's host state exactly; one
     more tick on each side then agrees as the session's ticks do."""
-    sj = session["sj"]
-    st = bridge.smoother_from_numpy(session["cfg_t"], _smoother_fields(sj),
-                                    "cpu")
+    fields = session["ref"]["fields"]
+    st = bridge.smoother_from_numpy(session["cfg_t"], fields, "cpu")
     for name in bridge.SMOOTHER_FIELDS:
-        a, b = getattr(sj, name), getattr(st, name)
+        a, b = fields[name], getattr(st, name)
         if isinstance(a, np.ndarray):
             npt.assert_array_equal(b, a, err_msg=name)
         else:
             assert a == b or (a != a and b != b), name
     for n in ARENA_NAMES:
-        ja, ta = getattr(sj, n), getattr(st, n)
+        ja, ta = fields[n], getattr(st, n)
         for f in ("slots", "active", "seq"):
-            npt.assert_array_equal(getattr(ta, f), getattr(ja, f))
-        assert ta._free == ja._free and ta._next_seq == ja._next_seq
-        for k, v in ja.fields.items():
+            npt.assert_array_equal(getattr(ta, f), ja[f])
+        assert ta._free == ja["_free"] and ta._next_seq == ja["_next_seq"]
+        for k, v in ja["fields"].items():
             npt.assert_array_equal(ta.fields[k], v, err_msg=f"{n}.{k}")
-    last = session["ticks"][-1]
-    for txn in last(jsm):
-        sj.send_transaction(txn)
-    for txn in last(tsm):
+    for txn in session["ticks"][-1](tsm):
         st.send_transaction(txn)
-    dj, dt = sj.run_once(), st.run_once()
-    _assert_ticks_agree(_state(sj), _state(st), dj, dt, "after the copy")
+    dt = st.run_once()
+    state_j, dj = session["ref"]["after"]
+    _assert_ticks_agree(state_j, _state(st), dj, dt, "after the copy")
 
 
-@pytest.mark.parametrize("max_skipped,force_skip", [(0, 0), (2, 2)])
+ASYNC_CASES = [(0, 0), (2, 2)]
+
+
+def _async_configs(max_skipped):
+    return tuple(dataclasses.replace(c, async_solve=True,
+                                     async_max_skipped_ticks=max_skipped)
+                 for c in _configs())
+
+
+def jax_async_session(max_skipped, force_skip):
+    """The reference's async smoother over the session's ticks, with
+    BEAM_SLAM_ASYNC_FORCE_SKIP set: after each tick its state, costs,
+    solve count and last solved stamp; then the flush's state and costs."""
+    old = os.environ.get("BEAM_SLAM_ASYNC_FORCE_SKIP")
+    os.environ["BEAM_SLAM_ASYNC_FORCE_SKIP"] = str(force_skip)
+    try:
+        ticks, _ = _transactions()
+        sj = jsm.FixedLagSmoother(_async_configs(max_skipped)[0])
+        out = []
+        for tick in ticks[:-1]:
+            for txn in tick(jsm):
+                sj.send_transaction(txn)
+            dj = sj.run_once()
+            if sj._inflight is not None:
+                # the reference's dispatched solve reads host buffers that
+                # the next skipped tick's ingestion overwrites in place;
+                # wait for it so that it solves the problem it was given
+                # (ROADMAP Queue 3)
+                jax.block_until_ready(sj._inflight[0])
+            out.append((_state(sj), _cost(dj), sj.solve_count,
+                        sj.last_solved_stamp))
+        dj = sj.flush()
+        return dict(out=out, flush=(_state(sj), _cost(dj)))
+    finally:
+        if old is None:
+            os.environ.pop("BEAM_SLAM_ASYNC_FORCE_SKIP", None)
+        else:
+            os.environ["BEAM_SLAM_ASYNC_FORCE_SKIP"] = old
+
+
+@pytest.mark.parametrize("max_skipped,force_skip", ASYNC_CASES)
 def test_async_tick_matches_reference(monkeypatch, max_skipped, force_skip):
     """The double-buffered tick (async_solve) on both sides over the same
     session: after every tick the same stamps, counters, pending queue and
     returned diagnostics (each tick returns the previous solve's, or None
-    on a skipped tick), states within the session's tolerances; then the
+    while one is in flight), the same solve count; then the same
     flushed last solve. With async_max_skipped_ticks=2 and
     BEAM_SLAM_ASYNC_FORCE_SKIP=2 both skip two ticks and block-harvest on
-    the third, on both sides the same sequence."""
+    the third, on both sides the same sequence. The reference's side is
+    recorded with the sync session."""
     monkeypatch.setenv("BEAM_SLAM_ASYNC_FORCE_SKIP", str(force_skip))
     ticks, gt = _transactions()
-    cfg_j, cfg_t = (dataclasses.replace(c, async_solve=True,
-                                        async_max_skipped_ticks=max_skipped)
-                    for c in _configs())
-    sj, st = jsm.FixedLagSmoother(cfg_j), tsm.FixedLagSmoother(cfg_t, "cpu")
+    st = tsm.FixedLagSmoother(_async_configs(max_skipped)[1], "cpu")
+    ref = jax_recording.load(RECORDING)[f"async {max_skipped} {force_skip}"]
     harvests = []
-    for k, tick in enumerate(ticks[:-1]):
-        for txn in tick(jsm):
-            sj.send_transaction(txn)
+    for k, (tick, (state_j, dj, count_j, last_j)) in enumerate(
+            zip(ticks[:-1], ref["out"])):
         for txn in tick(tsm):
             st.send_transaction(txn)
-        dj, dt = sj.run_once(), st.run_once()
-        if sj._inflight is not None:
-            # the reference's dispatched solve reads host buffers that the
-            # next skipped tick's ingestion overwrites in place; wait for it
-            # so that it solves the problem it was given (ROADMAP Queue 3)
-            jax.block_until_ready(sj._inflight[0])
-        _assert_ticks_agree(_state(sj), _state(st), dj, dt, f"tick {k}")
-        assert sj.solve_count == st.solve_count
-        assert sj.last_solved_stamp == st.last_solved_stamp
+        dt = st.run_once()
+        _assert_ticks_agree(state_j, _state(st), dj, dt, f"tick {k}")
+        assert count_j == st.solve_count
+        assert last_j == st.last_solved_stamp
         harvests.append(dt is not None)
-    dj, dt = sj.flush(), st.flush()
-    _assert_ticks_agree(_state(sj), _state(st), dj, dt, "flush")
+    state_j, dj = ref["flush"]
+    dt = st.flush()
+    _assert_ticks_agree(state_j, _state(st), dj, dt, "flush")
     assert st._inflight is None and dt is not None
     if max_skipped:
         # dispatch, skip, skip, harvest+dispatch, ...: the states ingested
@@ -324,3 +390,19 @@ def test_lio_config_matches_reference():
     # 990 dense dof + the trash dof: a 1024² reduced system after padding
     dof = out.max_states * 15 + out.max_extrinsics * 6 + 6
     assert dof == 990 and (dof + 1 + 127) // 128 * 128 == 1024
+
+
+def _record_all():
+    return dict(sync=jax_session(), **{
+        f"async {m} {f}": jax_async_session(m, f) for m, f in ASYNC_CASES})
+
+
+@pytest.mark.slow
+def test_recording_is_the_jax_packages_session():
+    """The reference's sessions run again equal their recording."""
+    jax_recording.assert_same(jax_recording.encode_roundtrip(_record_all()),
+                              jax_recording.load(RECORDING))
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["record"]:
+    print(jax_recording.save(RECORDING, _record_all()))

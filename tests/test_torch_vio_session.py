@@ -14,9 +14,17 @@ stamps, counters, queue, factor and landmark counts and keyframes, window
 states within 2e-3 m / 2e-3 rad; the ignition at the same stamp; the
 newest-state ATE of both sessions under the reference envelope test's
 0.05 m (tests/test_envelope_e2e.py).
+
+The reference's session is recorded in tests/data/vio_session_jax.json.gz
+(tests/test_torch_jax_recording.py: ~1.5 min of CPU compile and run a session);
+the slow test_recording_is_the_jax_packages_session runs it again and holds it
+to the recording, and ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+tests/test_torch_vio_session.py record`` rewrites it.
 """
 
 import dataclasses
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -34,6 +42,8 @@ from beam_slam_tpu_torch.models import slam_initialization as tsi
 from beam_slam_tpu_torch.pipeline import config as tcfg
 from beam_slam_tpu_torch.pipeline import local_mapper as tlm
 from beam_slam_tpu_torch.utils.evaluation import ate_rmse
+
+import test_torch_jax_recording as jax_recording
 
 torch.set_num_threads(2)
 
@@ -159,25 +169,46 @@ def _record_lidar_factors(registration, side, pairs, replace=False):
     registration.register_new_scan = registered
 
 
-def run_sessions(mode, duration, init, async_solve, shared_lidar=False):
-    """Both mappers on the reference's events. ``shared_lidar``: the port's
-    smoother gets the reference's lidar odometry factors in place of its
-    own, which are kept for comparison (``lidar_pairs``)."""
-    traj, events, _ = jss.generate_session_events(
+def session_events(mode, duration):
+    return jss.generate_session_events(
         mode=mode, duration_s=duration, imu_hz=IMU_HZ, cam_hz=CAM_HZ,
         lidar_hz=LIDAR_HZ, seed=SEED)
+
+
+def jax_session(mode, duration, init, async_solve, shared_lidar=False):
+    """The reference's mapper on its events: its record after every tick,
+    its ignition and, with ``shared_lidar``, its lidar odometry factors by
+    stamps."""
     pairs = {}
     mj = jlm.LocalMapper(config(jcfg, jsi, mode, init, async_solve))
     if shared_lidar:
         _record_lidar_factors(mj.lo.registration, "jax", pairs)
-    recs_j = drive(mj, events)
+    recs = drive(mj, session_events(mode, duration)[1])
+    return dict(recs=recs, init=dict(mj.init.result),
+                lidar={k: {f: np.asarray(getattr(v["jax"], f))
+                           for f in ("dq", "dp", "sqrt_info")}
+                       for k, v in pairs.items()})
+
+
+def run_sessions(mode, duration, init, async_solve, shared_lidar=False,
+                 recording=None):
+    """The port's mapper on the reference's events, beside the reference's
+    session (``recording``: its recording's name; else run here).
+    ``shared_lidar``: the port's smoother gets the reference's lidar
+    odometry factors in place of its own, which are kept for comparison
+    (``lidar_pairs``)."""
+    traj, events, _ = session_events(mode, duration)
+    mj = (jax_recording.load(recording) if recording else
+          jax_session(mode, duration, init, async_solve, shared_lidar))
+    pairs = {k: {"jax": types.SimpleNamespace(**v)}
+             for k, v in mj["lidar"].items()}
     mt = tlm.LocalMapper(config(tcfg, tsi, mode, init, async_solve),
                          device="cpu")
     if shared_lidar:
         _record_lidar_factors(mt.lo.registration, "port", pairs,
                               replace=True)
     recs_t = drive(mt, port_events(events))
-    return dict(traj=traj, mj=mj, mt=mt, recs_j=recs_j, recs_t=recs_t,
+    return dict(traj=traj, mj=mj, mt=mt, recs_j=mj["recs"], recs_t=recs_t,
                 duration=duration, lidar_pairs=pairs)
 
 
@@ -193,7 +224,7 @@ def assert_sessions_agree(s, min_states):
             dp = float(np.linalg.norm(a["p"][t] - b["p"][t]))
             assert dp < POS_TOL, (label, t, dp)
             assert rot_err(a["q"][t], b["q"][t]) < ROT_TOL, (label, t)
-    rj, rt = s["mj"].init.result, s["mt"].init.result
+    rj, rt = s["mj"]["init"], s["mt"].init.result
     assert rj["stamp"] == rt["stamp"]
     assert recs_t[-1]["initialized"] and rt["stamp"] < s["duration"] / 2
     assert len(recs_t[-1]["stamps"]) >= min_states
@@ -201,10 +232,14 @@ def assert_sessions_agree(s, min_states):
         assert newest_ate(recs, s["traj"]) < ATE_BOUND
 
 
+VIO_SESSION = dict(mode="VIO", duration=VIO_DURATION,
+                   init=dict(mode="LIDAR", min_trajectory_length_m=1.0,
+                             min_observability=0.1), async_solve=True)
+RECORDING = "vio_session_jax"
+
+
 def test_vio_session_matches_reference():
-    s = run_sessions("VIO", VIO_DURATION,
-                     dict(mode="LIDAR", min_trajectory_length_m=1.0,
-                          min_observability=0.1), async_solve=True)
+    s = run_sessions(**VIO_SESSION, recording=RECORDING)
     assert s["mt"].init.params.mode == "FRAMEINIT" and s["mt"].lo is None
     assert_sessions_agree(s, min_states=4)   # a keyframe every ~0.5 s
     last = s["recs_t"][-1]
@@ -212,6 +247,14 @@ def test_vio_session_matches_reference():
     assert len(keyframes) >= 3 and len(last["landmarks"]) >= 20
     assert last["factors"]["arena_reproj"] >= 50
     assert s["mt"].smoother.solve_count >= 4   # the ignition, 3 keyframes
+
+
+@pytest.mark.slow
+def test_recording_is_the_jax_packages_session():
+    """The reference's session run again equals its recording."""
+    jax_recording.assert_same(
+        jax_recording.encode_roundtrip(jax_session(**VIO_SESSION)),
+        jax_recording.load(RECORDING))
 
 
 @pytest.mark.slow
@@ -276,3 +319,7 @@ def test_visual_ignition_through_mapper_matches_reference():
         assert rot_err(st["q"], sj["q"]) < ROT_TOL, t
     # the VO starts from the ignition (visual_odometry.cpp:653)
     assert mt.vo.initialized and mj.vo.initialized
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["record"]:
+    print(jax_recording.save(RECORDING, jax_session(**VIO_SESSION)))

@@ -16,7 +16,18 @@ landmarks with the same ids at positions within 1e-3 m (inverse depths
 within 1e-3 relative), reprojection factors with the same stamps, ids and
 anchors, pixels and bearings within 1e-4 px; after each solve the same
 window within 1e-3 m / 1e-3 rad.
+
+The reference's two sessions (EUC and IDP landmarks: ~2 min of CPU compile and
+run) are recorded in tests/data/visual_odometry_jax.json.gz
+(tests/test_torch_jax_recording.py): its keyframe flags, transactions and
+windows frame by frame; the slow test_recording_is_the_jax_packages_session
+runs them again and holds them to the recording, and ``JAX_PLATFORMS=cpu
+PYTHONPATH=. python tests/test_torch_visual_odometry.py record`` rewrites it.
 """
+
+import dataclasses
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -40,6 +51,8 @@ from beam_slam_tpu_torch.solver import gauss_newton as tgn
 from beam_slam_tpu_torch.solver import smoother as tsm
 from test_vio_e2e import CAM, P_BC, Q_BC, observe
 
+import test_torch_jax_recording as jax_recording
+
 torch.set_num_threads(2)
 
 DURATION, CAM_HZ, IMU_HZ, N_LM, NOISE_PX = 2.0, 10.0, 200.0, 60, 0.5
@@ -48,6 +61,7 @@ SMOOTHER = dict(lag_duration=1.5, max_states=32, max_landmarks=64,
 VO = dict(keyframe_parallax_px=15.0, keyframe_max_dt=0.6)
 POS_TOL, ROT_TOL = 1e-3, 1e-3
 PIX_TOL = 1e-4
+RECORDING = "visual_odometry_jax"
 
 
 def _rot_err(q_a, q_b) -> float:
@@ -196,50 +210,101 @@ def assert_same_window(wa, wb, label):
         assert _rot_err(wa[t]["q"], wb[t]["q"]) < ROT_TOL, (label, t)
 
 
-def run_pair(params):
+def _window(w):
+    return {t: dict(p=np.asarray(x["p"]), q=np.asarray(x["q"]))
+            for t, x in w.items()}
+
+
+def jax_run(params):
+    """The reference's side of the session: after every frame its keyframe
+    flag, the transactions it sent and its window(s); at the end what the
+    tests read of its odometry and graph."""
     ign, frames = make_stream()
-    sides = [Side(JAX, params), Side(PORT, params)]
-    for s in sides:
-        s.ignite(*ign)
-    n_kf = peak_lm = 0
+    side = Side(JAX, params)
+    side.ignite(*ign)
+    per = []
     for t, imu, ids, pix in frames:
-        (kj, tj), (kt, tt) = (s.frame(t, imu, ids, pix) for s in sides)
+        kf, txns = side.frame(t, imu, ids, pix)
+        local = side.vo.local_smoother
+        per.append(dict(kf=kf, txns=[dataclasses.asdict(x) for x in txns],
+                        window=_window(side.window()),
+                        local=None if local is None
+                        else _window(side.window(local))))
+    sm = side.sm
+    return dict(
+        frames=per, keyframes=list(side.vo.keyframes),
+        failures=side.vo.failures, reset_count=side.vo.reset_count,
+        lm_active=np.asarray(sm.lm_active).copy(),
+        state_active=np.asarray(sm.state_active).copy(),
+        slot_of_lm_id=dict(sm.slot_of_lm_id), counters=dict(sm.counters),
+        arenas={n: np.asarray(getattr(sm, n).active).copy()
+                for n in ("arena_reproj", "arena_idp", "arena_rel")},
+        lm_pt=np.asarray(sm.lm_pt).copy())
+
+
+def _namespace(x):
+    """A recorded transaction as attributes, as the reference's is."""
+    if isinstance(x, dict):
+        return types.SimpleNamespace(**{k: _namespace(v)
+                                        for k, v in x.items()})
+    if isinstance(x, list):
+        return [_namespace(v) for v in x]
+    return x
+
+
+def run_pair(params, ref):
+    """The port's side of the session against the reference's (``ref``,
+    as jax_run gives it): after every frame the same keyframe decision and
+    transactions, the same window(s)."""
+    ign, frames = make_stream()
+    side = Side(PORT, params)
+    side.ignite(*ign)
+    n_kf = peak_lm = 0
+    for (t, imu, ids, pix), rj in zip(frames, ref["frames"]):
+        kt, tt = side.frame(t, imu, ids, pix)
         label = f"frame {t}"
-        assert kj == kt, label
-        assert len(tj) == len(tt), label
-        for a, b in zip(tj, tt):
-            assert_same_txn(a, b, label)
-        assert_same_window(sides[0].window(), sides[1].window(), label)
-        if sides[0].vo.local_smoother is not None:
-            assert_same_window(sides[0].window(sides[0].vo.local_smoother),
-                               sides[1].window(sides[1].vo.local_smoother),
-                               label)
-        n_kf += kj
-        peak_lm = max(peak_lm, int(sides[1].graph_lms()))
-    return sides, n_kf, peak_lm
+        assert rj["kf"] == kt, label
+        assert len(rj["txns"]) == len(tt), label
+        for a, b in zip(rj["txns"], tt):
+            assert_same_txn(_namespace(a), b, label)
+        assert_same_window(rj["window"], side.window(), label)
+        if rj["local"] is not None:
+            assert_same_window(rj["local"],
+                               side.window(side.vo.local_smoother), label)
+        n_kf += rj["kf"]
+        peak_lm = max(peak_lm, int(side.graph_lms()))
+    return side, n_kf, peak_lm
 
 
 @pytest.mark.parametrize("landmark_type", ["EUC", "IDP"])
 def test_vo_session_matches_reference(landmark_type):
-    (j, t), n_kf, peak_lm = run_pair(dict(VO, landmark_type=landmark_type))
-    assert n_kf >= 4 and t.vo.keyframes == j.vo.keyframes
-    assert t.vo.failures == j.vo.failures
-    assert t.vo.reset_count == j.vo.reset_count
+    j = jax_recording.load(RECORDING)[landmark_type]
+    t, n_kf, peak_lm = run_pair(dict(VO, landmark_type=landmark_type), j)
+    assert n_kf >= 4 and t.vo.keyframes == j["keyframes"]
+    assert t.vo.failures == j["failures"]
+    assert t.vo.reset_count == j["reset_count"]
     for name in ("lm_active", "state_active"):
-        np.testing.assert_array_equal(getattr(t.sm, name),
-                                      getattr(j.sm, name), err_msg=name)
-    assert t.sm.slot_of_lm_id == j.sm.slot_of_lm_id
-    assert t.sm.counters == j.sm.counters
+        np.testing.assert_array_equal(getattr(t.sm, name), j[name],
+                                      err_msg=name)
+    assert t.sm.slot_of_lm_id == j["slot_of_lm_id"]
+    assert t.sm.counters == j["counters"]
     arena = "arena_idp" if landmark_type == "IDP" else "arena_reproj"
     np.testing.assert_array_equal(getattr(t.sm, arena).active,
-                                  getattr(j.sm, arena).active)
+                                  j["arenas"][arena])
     # the map was built (IDP landmarks leave with their anchor keyframe)
     # and the window slid past its first states
     assert peak_lm >= 20
     assert t.sm._last_marginalized_stamps and 0.0 not in t.sm.slot_of_stamp
     for lm_id, s in t.sm.slot_of_lm_id.items():
-        assert float(np.linalg.norm(t.sm.lm_pt[s] - j.sm.lm_pt[s])) \
-            < POS_TOL * max(1.0, float(np.abs(j.sm.lm_pt[s]).max())), lm_id
+        assert float(np.linalg.norm(t.sm.lm_pt[s] - j["lm_pt"][s])) \
+            < POS_TOL * max(1.0, float(np.abs(j["lm_pt"][s]).max())), lm_id
+
+
+@pytest.mark.slow
+def test_recording_is_the_jax_packages_session():
+    """The reference's sessions run again equal their recording."""
+    jax_recording.assert_same(jax_recording.encode_roundtrip(_record_all()),
+                              jax_recording.load(RECORDING))
 
 
 @pytest.mark.slow
@@ -249,13 +314,15 @@ def test_vo_standalone_matches_reference():
     the same on both sides after every frame. Slow (~40 s on the CPU, most
     of it compiling the reference's two graphs); LVIO and VIO do not run
     standalone mode."""
-    (j, t), n_kf, peak_lm = run_pair(dict(VO, standalone=True))
+    params = dict(VO, standalone=True)
+    j = jax_run(params)
+    t, n_kf, peak_lm = run_pair(params, j)
     assert n_kf >= 4
     assert t.sm.lm_active.sum() == 0 and t.sm.arena_reproj.active.sum() == 0
     assert peak_lm >= 20
     assert t.sm.arena_rel.active.sum() >= 2
     np.testing.assert_array_equal(t.sm.arena_rel.active,
-                                  j.sm.arena_rel.active)
+                                  j["arenas"]["arena_rel"])
 
 
 def test_vo_fallback_and_failure_counter_matches_reference():
@@ -286,3 +353,11 @@ def test_vo_fallback_and_failure_counter_matches_reference():
         assert tj == tt and np.array_equal(pt, pj) and np.array_equal(qt, qj)
         np.testing.assert_allclose(pt, np.full(3, 0.1 * k), rtol=1e-6)
     assert vt.reset_count == 1 and vt.failures == 2
+
+
+def _record_all():
+    return {lt: jax_run(dict(VO, landmark_type=lt)) for lt in ("EUC", "IDP")}
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["record"]:
+    print(jax_recording.save(RECORDING, _record_all()))
