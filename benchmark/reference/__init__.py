@@ -1,0 +1,1 @@
+"""Part of the benchmark (see benchmark/harness.py)."""
