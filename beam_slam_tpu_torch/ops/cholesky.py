@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from beam_slam_tpu_torch.obs import trace
 from beam_slam_tpu_torch.ops import nvcc_build
 
 SOURCES = ("cholesky.cu", "cholesky_grid.cu")
@@ -420,18 +421,20 @@ def cholesky_solve_batched(H: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"schedule {schedule!r} not in {SCHEDULES}")
     if cluster is not None and schedule == "grid":
         raise ValueError("cluster= is the cluster schedule's knob")
+    B, N = g.shape
     if H.device.type == "cpu":
-        return cholesky_solve_batched_reference(H, g)
+        with trace.span("k1.solve", B=B, N=N, schedule="plain"):
+            return cholesky_solve_batched_reference(H, g)
     if H.device.type != "cuda":
         raise ValueError(f"unsupported device {H.device}")
-    B, N = g.shape
     dev = H.device.index
     if schedule is None:
         schedule = "cluster" if cluster is not None else _schedule(B, N, dev)
-    if schedule == "grid":
-        x, info = _solve_grid(H, g)
-    else:
-        x, info = _solve_cluster(H, g, cluster)
+    with trace.span("k1.solve", B=B, N=N, schedule=schedule):
+        if schedule == "grid":
+            x, info = _solve_grid(H, g)
+        else:
+            x, info = _solve_cluster(H, g, cluster)
     with _LAUNCHES_LOCK:  # the smoother's async worker launches K1 too
         cholesky_solve_batched.launches += 1
         cholesky_solve_batched.shapes[(B, N)] += 1

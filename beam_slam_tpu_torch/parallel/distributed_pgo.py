@@ -38,6 +38,7 @@ import torch
 from beam_slam_tpu_torch.core import lie
 from beam_slam_tpu_torch.core.autodiff import FORWARD_AD
 from beam_slam_tpu_torch.core.window import Struct
+from beam_slam_tpu_torch.obs import trace
 from beam_slam_tpu_torch.ops.cholesky import cholesky_solve_batched
 from beam_slam_tpu_torch.device import resolve
 from beam_slam_tpu_torch.parallel.sharded import Mesh
@@ -135,13 +136,14 @@ def _prior_one(delta, q, p, q0, p0, A):
 def _linearize(fn, n_dof, args):
     """(r [..., 6], J [..., 6, n_dof]) by forward-mode autodiff at δ = 0,
     vmapped over the flattened leading (shard and factor) axes."""
-    lead = args[0].shape[:-1]
-    flat = tuple(a.reshape((-1,) + a.shape[len(lead):]) for a in args)
-    zeros = flat[0].new_zeros((flat[0].shape[0], n_dof))
-    with FORWARD_AD:   # one forward-AD user at a time (core/autodiff)
-        J, r = torch.func.vmap(torch.func.jacfwd(fn, has_aux=True))(
-            zeros, *flat)
-    return r.reshape(lead + r.shape[1:]), J.reshape(lead + J.shape[1:])
+    with trace.span("pgo.linearize"):
+        lead = args[0].shape[:-1]
+        flat = tuple(a.reshape((-1,) + a.shape[len(lead):]) for a in args)
+        zeros = flat[0].new_zeros((flat[0].shape[0], n_dof))
+        with FORWARD_AD:   # one forward-AD user at a time (core/autodiff)
+            J, r = torch.func.vmap(torch.func.jacfwd(fn, has_aux=True))(
+                zeros, *flat)
+        return r.reshape(lead + r.shape[1:]), J.reshape(lead + J.shape[1:])
 
 
 def _block_cols(slots, dof=POSE_DOF):
@@ -231,7 +233,8 @@ def _damped_system(H, g, lam, free_dof):
 def _damped_solve(H, g, lam, free_dof):
     """One damped step through K1; a non-finite step (K1's NaN for a
     failed factorization) becomes zero and ``ok`` is False."""
-    Hs, gs, s = _damped_system(H, g, lam, free_dof)
+    with trace.span("pgo.damped_system"):
+        Hs, gs, s = _damped_system(H, g, lam, free_dof)
     y, _ = cholesky_solve_batched(Hs[None].contiguous(),
                                   gs[None].contiguous())
     delta = y[0] * s * free_dof.to(H.dtype)
@@ -251,27 +254,39 @@ def _lm_loop(state: PGOState, factors: PGOFactors, priors: PGOPriors,
              n_iter: int, n_axes: int):
     """The LM loop over the sharded factors (``n_axes`` leading shard axes
     on every factor leaf): one assembly of every shard and one reduction
-    per step; exactly ``n_iter`` steps, no host sync inside."""
+    per step; exactly ``n_iter`` steps, no host sync inside. Under the
+    profiler (:mod:`beam_slam_tpu_torch.obs.trace`) its layers are spans
+    of one ``pgo.solve`` and it counts the steps run and accepted."""
     free_dof = torch.repeat_interleave(state.free, POSE_DOF)
 
     def assemble(st):
-        H, g, cost = _local_normal_eqs(st, factors, priors)
-        return _reduce(H, n_axes), _reduce(g, n_axes), _reduce(cost, n_axes)
+        with trace.span("pgo.assemble"):
+            H, g, cost = _local_normal_eqs(st, factors, priors)
+            return (_reduce(H, n_axes), _reduce(g, n_axes),
+                    _reduce(cost, n_axes))
 
-    H, g, cost = assemble(state)
-    c0 = cost
-    lam = torch.full_like(cost, 1e-4)
-    for _ in range(n_iter):
-        delta, ok = _damped_solve(H, g, lam, free_dof)
-        trial = _retract(state, delta)
-        H_t, g_t, c_t = assemble(trial)
-        accept = ok & (c_t < cost)
-        state = state.map(lambda a, b: torch.where(accept, b, a), trial)
-        H = torch.where(accept, H_t, H)
-        g = torch.where(accept, g_t, g)
-        cost = torch.where(accept, c_t, cost)
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-12),
-                          torch.clamp(lam * 4.0, max=1e8))
+    with trace.span("pgo.solve"):
+        H, g, cost = assemble(state)
+        c0 = cost
+        lam = torch.full_like(cost, 1e-4)
+        for _ in range(n_iter):
+            with trace.span("pgo.step"):
+                delta, ok = _damped_solve(H, g, lam, free_dof)
+                with trace.span("pgo.update"):
+                    trial = _retract(state, delta)
+                H_t, g_t, c_t = assemble(trial)
+                with trace.span("pgo.update"):
+                    accept = ok & (c_t < cost)
+                    state = state.map(lambda a, b: torch.where(accept, b, a),
+                                      trial)
+                    H = torch.where(accept, H_t, H)
+                    g = torch.where(accept, g_t, g)
+                    cost = torch.where(accept, c_t, cost)
+                    lam = torch.where(accept,
+                                      torch.clamp(lam * 0.5, min=1e-12),
+                                      torch.clamp(lam * 4.0, max=1e8))
+                    trace.count("pgo.lm_steps")
+                    trace.count_device("pgo.lm_accepted", accept)
     return state, c0, cost
 
 

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from beam_slam_tpu_torch.core import window as win
 from beam_slam_tpu_torch.core.window import LANDMARK_DOF, WindowState
+from beam_slam_tpu_torch.obs import trace
 from beam_slam_tpu_torch.ops.cholesky import cholesky_solve_batched
 from beam_slam_tpu_torch.ops.mat3 import inv3x3
 
@@ -256,8 +257,9 @@ def _solve_damped(H, g, free, lam, H_ll, g_l, W, lm_free):
     carry the same leading batch dims: all reduced systems go through one
     K1 call (the kernel on a CUDA tensor, its plain version on a CPU one),
     so this is also the reference's ``solve_damped_batched``."""
-    Hp, gp, ctx = _damped_reduced_system(H, g, free, lam, H_ll, g_l, W,
-                                         lm_free)
+    with trace.span("lm.schur"):
+        Hp, gp, ctx = _damped_reduced_system(H, g, free, lam, H_ll, g_l, W,
+                                             lm_free)
     N = Hp.shape[-1]
     y, _ = cholesky_solve_batched(Hp.reshape(-1, N, N), gp.reshape(-1, N))
     return _damped_backsub(y.reshape(gp.shape), ctx)
@@ -328,44 +330,60 @@ def lm_loop(window: WindowState, assemble, n_iter: int,
     equations, retracts a trial, and assembles AT THE TRIAL — that single
     pass yields both the trial cost (accept/reject) and, on accept, the next
     iteration's normal equations. Runs exactly ``n_iter`` steps; after the
-    ``done`` latch (or with no improvement) a step changes nothing."""
+    ``done`` latch (or with no improvement) a step changes nothing. Under
+    the profiler (:mod:`beam_slam_tpu_torch.obs.trace`) its layers are
+    spans of one ``lm.solve``."""
     free_full = window.dense_free_mask()
     free = torch.cat([free_full, torch.zeros_like(free_full[..., :1])], dim=-1)
     lm_free = window.landmarks.active & ~window.landmarks.held
 
-    H, g, H_ll, g_l, W, cost = assemble(window)
-    init_cost = cost
-    lam = torch.full_like(cost, options.initial_lambda)
-    done = torch.zeros_like(cost, dtype=torch.bool)
-    iters = torch.zeros_like(cost, dtype=torch.int32)
+    def assemble_at(w):
+        with trace.span("lm.assemble"):
+            return assemble(w)
 
     def sel(accept, new, old):
         return torch.where(accept.reshape(
             accept.shape + (1,) * (new.dim() - accept.dim())), new, old)
 
-    for _ in range(n_iter):
-        active = ~done
-        delta, delta_l, ok = _solve_damped(H, g, free, lam, H_ll, g_l, W,
-                                           lm_free)
-        trial = window.retract_dense(delta[..., :-1])
-        trial = trial.replace(landmarks=trial.landmarks.retract(delta_l))
-        H_t, g_t, H_ll_t, g_l_t, W_t, new_cost = assemble(trial)
-        accept = ok & (new_cost < cost) & active
-        window = win.where(accept, trial, window)
-        H, g = sel(accept, H_t, H), sel(accept, g_t, g)
-        H_ll, g_l = sel(accept, H_ll_t, H_ll), sel(accept, g_l_t, g_l)
-        W = sel(accept, W_t, W)
-        rel_drop = (cost - new_cost) / torch.clamp(cost, min=1e-20)
-        done = done | (accept & (rel_drop < options.function_tolerance))
-        lam = torch.where(
-            ~active | done, lam,
-            torch.where(accept,
-                        torch.clamp(lam * 0.5, min=options.min_lambda),
-                        torch.clamp(lam * 4.0, max=options.max_lambda)))
-        cost = torch.where(accept, new_cost, cost)
-        iters = iters + accept.to(torch.int32)
-        if options.early_exit and bool(done.all()):
-            break
+    with trace.span("lm.solve"):
+        H, g, H_ll, g_l, W, cost = assemble_at(window)
+        init_cost = cost
+        lam = torch.full_like(cost, options.initial_lambda)
+        done = torch.zeros_like(cost, dtype=torch.bool)
+        iters = torch.zeros_like(cost, dtype=torch.int32)
+
+        for _ in range(n_iter):
+            with trace.span("lm.step"):
+                active = ~done
+                delta, delta_l, ok = _solve_damped(H, g, free, lam, H_ll,
+                                                   g_l, W, lm_free)
+                with trace.span("lm.update"):
+                    trial = window.retract_dense(delta[..., :-1])
+                    trial = trial.replace(
+                        landmarks=trial.landmarks.retract(delta_l))
+                H_t, g_t, H_ll_t, g_l_t, W_t, new_cost = assemble_at(trial)
+                with trace.span("lm.update"):
+                    accept = ok & (new_cost < cost) & active
+                    window = win.where(accept, trial, window)
+                    H, g = sel(accept, H_t, H), sel(accept, g_t, g)
+                    H_ll = sel(accept, H_ll_t, H_ll)
+                    g_l = sel(accept, g_l_t, g_l)
+                    W = sel(accept, W_t, W)
+                    rel_drop = (cost - new_cost) / torch.clamp(cost,
+                                                               min=1e-20)
+                    done = done | (accept & (rel_drop
+                                             < options.function_tolerance))
+                    lam = torch.where(
+                        ~active | done, lam,
+                        torch.where(accept,
+                                    torch.clamp(lam * 0.5,
+                                                min=options.min_lambda),
+                                    torch.clamp(lam * 4.0,
+                                                max=options.max_lambda)))
+                    cost = torch.where(accept, new_cost, cost)
+                    iters = iters + accept.to(torch.int32)
+            if options.early_exit and bool(done.all()):
+                break
 
     diag = SolveDiagnostics(initial_cost=init_cost, final_cost=cost,
                             iterations=iters, converged=done,

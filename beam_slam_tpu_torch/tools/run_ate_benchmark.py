@@ -10,7 +10,13 @@ under the deterministic sync oracle. Each session is scored as the
 SE(3)-aligned ATE RMSE of every solve's newest state against the analytic
 ground truth. One JSON line per mode: the ATE, poses, solves, ms a solve,
 wall and real-time factor, K1 and K2 launches with the shapes K1 saw, peak
-device memory and the card's idle share over one frame that solved.
+device memory, and over one frame that solved, on the card: the card's
+idle share and the frame's wall (``idle_share``, ``idle_frame_ms``), the
+host's self time in ms by span of the smoother's LM loop and K1's call
+(``frame_self_ms``: ``lm.solve``, ``lm.step``, ``lm.assemble``,
+``lm.schur``, ``lm.update``, ``k1.solve``) and K1's launches by schedule
+(``frame_k1_launches``). Each is null on the CPU, where no frame is
+profiled; the last two are null too if the span recorder dropped a span.
 
     python -m beam_slam_tpu_torch.tools.run_ate_benchmark [--duration 60]
         [--modes LIO,VIO,LVIO] [--device cuda|cpu] [--out TABLE.md]
@@ -25,6 +31,7 @@ import datetime
 import json
 import sys
 import time
+from collections import Counter, defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -54,12 +61,59 @@ def _oracle(cfg):
     cfg.pipelined_registration = False
 
 
+def _frame_spans(t0_ns: int, t1_ns: int, prefixes):
+    """The recorder's spans (:mod:`beam_slam_tpu_torch.obs.trace`) and the
+    indices of those named with one of ``prefixes`` that started in
+    [t0_ns, t1_ns] on the profiler's clock; None if it dropped any span."""
+    from beam_slam_tpu_torch.obs import trace
+    if trace.dropped():
+        return None
+    spans = trace.spans()
+    return spans, [i for i, s in enumerate(spans)
+                   if t0_ns <= s.start <= t1_ns
+                   and s.name.startswith(prefixes)]
+
+
+def frame_self_ms(t0_ns: int, t1_ns: int):
+    """Self time (ms) by name of the closed ``lm.*`` and ``k1.*`` spans
+    that started in [t0_ns, t1_ns]: each span's duration less its closed
+    children's; None if the recorder dropped any span."""
+    got = _frame_spans(t0_ns, t1_ns, ("lm.", "k1."))
+    if got is None:
+        return None
+    spans, keep = got
+    child = defaultdict(int)
+    for s in spans:
+        if s.end is not None and s.parent >= 0:
+            child[s.parent] += s.end - s.start
+    ns = defaultdict(int)
+    for i in keep:
+        s = spans[i]
+        if s.end is not None:
+            ns[s.name] += (s.end - s.start) - child[i]
+    return {k: v / 1e6 for k, v in sorted(ns.items())}
+
+
+def frame_k1_launches(t0_ns: int, t1_ns: int):
+    """K1's launches by schedule, from the ``schedule`` attribute of the
+    ``k1.solve`` spans that started in [t0_ns, t1_ns]; None if the
+    recorder dropped any span."""
+    got = _frame_spans(t0_ns, t1_ns, ("k1.solve",))
+    if got is None:
+        return None
+    spans, keep = got
+    return dict(sorted(Counter(spans[i].attrs["schedule"]
+                               for i in keep).items()))
+
+
 class _FrameProfile:
     """The card's idle share as ``chip_smoke.py``'s phase 11 measures it:
     one frame (its sensor events and its tick) under the profiler, the
-    union of the card's op intervals over the frame's wall. From the frame
-    whose tick is at ``start_s`` of session time on, each frame is profiled
-    alone until one runs a solve."""
+    union of the card's op intervals over the frame's wall; and the host's
+    self time by span and K1's launches by schedule over that frame
+    (:func:`frame_self_ms`, :func:`frame_k1_launches`). From the
+    frame whose tick is at ``start_s`` of session time on, each frame is
+    profiled alone until one runs a solve."""
 
     def __init__(self, start_s: float):
         self.start_s, self.prof, self.result = start_s, None, None
@@ -67,9 +121,13 @@ class _FrameProfile:
     def on_tick(self, mapper, t: float):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+        from beam_slam_tpu_torch.obs import trace
         if self.prof is not None:
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - self.t0)
+            t1_ns = time.time_ns()
+            self_ms = frame_self_ms(self.t0_ns, t1_ns)
+            k1 = frame_k1_launches(self.t0_ns, t1_ns)
             self.prof.__exit__(None, None, None)
             if mapper.smoother.solve_count > self.solves:
                 on_dev = [e for e in self.prof.events()
@@ -77,14 +135,17 @@ class _FrameProfile:
                 busy = union_ms([(e.time_range.start, e.time_range.end)
                                  for e in on_dev])
                 self.result = dict(device_ms=busy, wall_ms=wall_ms,
-                                   idle_share=1.0 - busy / wall_ms)
+                                   idle_share=1.0 - busy / wall_ms,
+                                   self_ms=self_ms, k1=k1)
             self.prof = None
         if self.result is None and t >= self.start_s:
             self.solves = mapper.smoother.solve_count
+            trace.reset()
             self.prof = profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA])
             self.prof.__enter__()
             self.t0 = time.perf_counter()
+            self.t0_ns = time.time_ns()
 
     def close(self):
         if self.prof is not None:
@@ -161,6 +222,8 @@ def run_mode(mode: str, duration_s: float, device=None,
                       if cuda else None),
         idle_share=None if idle is None else idle["idle_share"],
         idle_frame_ms=None if idle is None else idle["wall_ms"],
+        frame_self_ms=None if idle is None else idle["self_ms"],
+        frame_k1_launches=None if idle is None else idle["k1"],
         device=torch.cuda.get_device_name(device) if cuda else str(device))
 
 
